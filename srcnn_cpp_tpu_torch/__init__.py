@@ -1,0 +1,31 @@
+"""srcnn_cpp_tpu_torch — the SRCNN super-resolution pipeline on PyTorch + CUDA.
+
+The port of ``srcnn_cpp_tpu`` (JAX/Pallas, TPU) to PyTorch with
+hand-written CUDA kernels for NVIDIA Hopper (``sm_90a``).  The JAX package
+is the reference the port is tested against; this package imports neither
+it nor JAX.
+
+Public surface:
+
+* :func:`upscale_bgr` / :func:`upscale_bgr_batch` — the full image
+  pipeline (the ``srcnn`` binary equivalent);
+* :func:`process_srcnn` — the raw-buffer API (``ProcessSRCNN``,
+  reference src/test.cpp:345);
+* :func:`load_weights` — the pretrained SRCNN 9-5-5 checkpoint as tensors;
+* :mod:`.cli` — the command line (``python -m srcnn_cpp_tpu_torch``).
+"""
+
+__version__ = "0.1.0"
+
+
+def __getattr__(name):
+    # lazy re-exports: importing the package loads neither torch nor numpy
+    if name in ("upscale_bgr", "upscale_bgr_batch", "process_srcnn"):
+        from . import pipeline
+
+        return getattr(pipeline, name)
+    if name == "load_weights":
+        from .weights import load_weights
+
+        return load_weights
+    raise AttributeError(name)

@@ -1,0 +1,8 @@
+"""Tensor ops of the port: plain PyTorch versions and the CUDA kernel wrappers.
+
+* :mod:`.color`, :mod:`.resize`, :mod:`.srcnn`, :mod:`.quantize` — plain
+  PyTorch, any device;
+* :mod:`.cuda_resize` (K2), :mod:`.cuda_srcnn` (K1), :mod:`.cuda_merge`
+  (K3) — wrappers that launch a hand-written CUDA kernel for CUDA tensors
+  and run their plain version for CPU tensors.
+"""

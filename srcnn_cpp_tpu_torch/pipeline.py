@@ -1,0 +1,107 @@
+"""End-to-end super-resolution pipeline (the reference's ``pthreadcall``).
+
+Runs the reference's 9-step pipeline (src/srcnn.cpp:449-698) on one
+device:
+
+    BGR u8 -> YCrCb (fixed-point) -> per-channel bicubic x scale
+    (OpenCV-4.6-bit-exact) -> SRCNN on Y -> merge(Y', Cr, Cb) -> BGR u8
+
+as three kernels: K2 the pre-pass (:mod:`.ops.cuda_resize`), K1 the conv
+stack (:mod:`.ops.cuda_srcnn`) and K3 the post-pass (:mod:`.ops.cuda_merge`).
+On a CUDA device each wrapper launches its kernel; on the CPU each runs its
+plain PyTorch version.  There is one path per device and no fallback.
+
+Device tensors are planar ``[B, 3, H, W]`` u8, as in the JAX package; the
+host transposes HWC <-> planar around the device span.  Image decode and
+encode stay on the host (srcnn.cpp:462,670).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .ops.cuda_merge import merge_ycrcb_to_bgr_fused
+from .ops.cuda_resize import pre_upscale_fused
+from .ops.cuda_srcnn import srcnn_y_fused
+from .ops.resize import resize_bicubic_u8, scaled_size
+from .weights import SRCNNWeights, load_weights
+
+
+def upscale_planar(bgr_p: torch.Tensor, weights: SRCNNWeights,
+                   out_hw: tuple[int, int]) -> torch.Tensor:
+    """Planar BGR u8 ``[B, 3, H, W]`` -> planar BGR u8 ``[B, 3, oh, ow]``,
+    on the device of ``bgr_p`` (``weights`` must live there too)."""
+    up = pre_upscale_fused(bgr_p, out_hw)        # YCrCb [B, 3, oh, ow]
+    y_sr = srcnn_y_fused(up[:, 0], weights)      # [B, oh, ow]
+    return merge_ycrcb_to_bgr_fused(y_sr, up)
+
+
+def _weights_on(weights: SRCNNWeights | None, device: torch.device):
+    w = weights if weights is not None else load_weights()
+    return w if w.device == device else w.to(device)
+
+
+def upscale_bgr_batch(bgr_u8, scale: float, weights: SRCNNWeights | None = None,
+                      device="cuda") -> np.ndarray:
+    """Super-resolve a batch ``[B, H, W, 3]`` of BGR uint8 frames on
+    ``device``; returns a host array ``[B, oh, ow, 3]``.
+
+    Output dims are ``floor(float32(dim) * float32(scale))``, matching the
+    reference (srcnn.cpp:573-575).
+    """
+    device = torch.device(device)
+    bgr = np.asarray(bgr_u8, dtype=np.uint8)
+    h, w = bgr.shape[1:3]
+    ow, oh = scaled_size(w, h, scale)
+    planar = torch.from_numpy(np.ascontiguousarray(np.moveaxis(bgr, -1, 1)))
+    out = upscale_planar(planar.to(device), _weights_on(weights, device),
+                         (oh, ow))
+    return np.ascontiguousarray(np.moveaxis(out.cpu().numpy(), 1, -1))
+
+
+def upscale_bgr(bgr_u8, scale: float, weights: SRCNNWeights | None = None,
+                device="cuda") -> np.ndarray:
+    """Super-resolve one BGR uint8 image ``[H, W, 3]`` by ``scale``."""
+    return upscale_bgr_batch(np.asarray(bgr_u8)[None], scale, weights,
+                             device)[0]
+
+
+def process_srcnn(buf, w: int, h: int, d: int, scale: float,
+                  weights: SRCNNWeights | None = None, device="cuda"):
+    """Raw-buffer library API (the libsrcnn ``ProcessSRCNN`` shape).
+
+    The call contract of reference src/test.cpp:345-361: interleaved uint8
+    pixels in, ``(out_buffer, out_size)`` out, with ``out_size ==
+    floor(w*scale) * floor(h*scale) * d``.  ``d`` may be 1 (one plane,
+    resized and super-resolved directly), 2 (RGB565, normalized to RGB by
+    :func:`.imageio.conv_image` and returned with 3 channels), 3 (RGB,
+    through YCrCb like the main binary) or 4 (RGBA: color super-resolved,
+    alpha bicubic).
+    """
+    device = torch.device(device)
+    if d == 2:
+        from .imageio import conv_image
+
+        img = conv_image(buf, w, h, 2)
+        d = 3
+    elif d in (1, 3, 4):
+        img = np.asarray(buf, dtype=np.uint8).reshape(
+            (h, w, d) if d > 1 else (h, w))
+    else:
+        raise ValueError(f"unsupported depth {d}; expected 1, 2, 3 or 4")
+    ow, oh = scaled_size(w, h, scale)
+    if d == 1:
+        up = resize_bicubic_u8(torch.from_numpy(np.array(img)).to(device),
+                               (oh, ow))
+        out = srcnn_y_fused(up, _weights_on(weights, device)).cpu().numpy()
+    else:
+        bgr = img[..., 2::-1]
+        out = upscale_bgr(bgr, scale, weights, device)[..., ::-1]
+        if d == 4:
+            alpha = resize_bicubic_u8(
+                torch.from_numpy(np.ascontiguousarray(img[..., 3])).to(device),
+                (oh, ow)).cpu().numpy()
+            out = np.concatenate([out, alpha[..., None]], axis=-1)
+    flat = np.ascontiguousarray(out).reshape(-1)
+    return flat, flat.size
