@@ -12,6 +12,11 @@ Public surface:
 * :func:`process_srcnn` — the raw-buffer API (``ProcessSRCNN``,
   reference src/test.cpp:345);
 * :func:`load_weights` — the pretrained SRCNN 9-5-5 checkpoint as tensors;
+* :func:`evaluate_image` — the Resize.m evaluation protocol
+  (:mod:`.evaluate`, ``python -m srcnn_cpp_tpu_torch.evaluate``);
+* :class:`StreamUpscaler` — the pipelined video upscaler (:mod:`.stream`,
+  ``python -m srcnn_cpp_tpu_torch.stream``);
+* :mod:`.configs` — the single-card production configurations;
 * :mod:`.cli` — the command line (``python -m srcnn_cpp_tpu_torch``).
 """
 
@@ -28,4 +33,12 @@ def __getattr__(name):
         from .weights import load_weights
 
         return load_weights
+    if name == "evaluate_image":
+        from .evaluate import evaluate_image
+
+        return evaluate_image
+    if name == "StreamUpscaler":
+        from .stream import StreamUpscaler
+
+        return StreamUpscaler
     raise AttributeError(name)

@@ -37,6 +37,27 @@ _PROG = "srcnn-torch"
 DEVICES = ("cuda", "cpu")
 
 
+def device_name(device) -> str:
+    """The card's name for a CUDA device, ``"cpu"`` otherwise."""
+    import torch
+
+    device = torch.device(device)
+    return torch.cuda.get_device_name(device) if device.type == "cuda" \
+        else "cpu"
+
+
+def cuda_missing(device: str, prog: str) -> bool:
+    """True, after an error message on stderr, when ``device`` is ``cuda``
+    and no GPU is available: the CLIs never fall back to the CPU."""
+    import torch
+
+    if device != "cuda" or torch.cuda.is_available():
+        return False
+    print(f"{prog}: no CUDA device available (use --device=cpu to run "
+          "the plain PyTorch path)", file=sys.stderr)
+    return True
+
+
 class UsageError(ValueError):
     """Malformed command line (bad flag value or unknown flag)."""
 
@@ -120,9 +141,7 @@ def run(opts) -> int:
             print(msg, flush=True)
 
     device = opts["device"]
-    if device == "cuda" and not torch.cuda.is_available():
-        print(f"{_PROG}: no CUDA device available (use --device=cpu to run "
-              "the plain PyTorch path)", file=sys.stderr)
+    if cuda_missing(device, _PROG):
         return EXIT_CODES["load_or_scale"]
     src, dst = opts["src"], opts["dst"]
     say(f"- Loading image : {src}")

@@ -6,8 +6,8 @@
 //
 // What it computes, bit-exact with ycrcb2bgr_u8_planar(stack([Y', Cr, Cb]))
 // (reference src/srcnn.cpp:638-639 merge and :657 cvtColor(YCrCb2BGR)):
-// OpenCV's 14-bit fixed-point inverse transform in int32, clipped to u8.  The
-// Y channel of the upscaled input is never read.
+// OpenCV's 14-bit fixed-point inverse transform in int32 (color.cuh),
+// clipped to u8.  The Y channel of the upscaled input is never read.
 //
 // What bounds it on the H100: bytes.  Per pixel 3 bytes are read and 3
 // written against ~10 integer ops.
@@ -20,14 +20,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "color.cuh"
+
 namespace {
-
-constexpr int SHIFT = 14, HALF = 1 << (SHIFT - 1);
-constexpr int CR2R = 22987, CR2G = -11698, CB2G = -5636, CB2B = 29049;
-
-__device__ __forceinline__ uint8_t clamp_u8(int v) {
-  return (uint8_t)min(max(v, 0), 255);
-}
 
 __global__ void merge_kernel(const uint8_t* __restrict__ y,
                              const uint8_t* __restrict__ up,
@@ -35,13 +30,9 @@ __global__ void merge_kernel(const uint8_t* __restrict__ y,
   const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= plane) return;
   const long long b = blockIdx.y;
-  const int yv = y[b * plane + p];
-  const int cr = (int)up[(b * 3 + 1) * plane + p] - 128;
-  const int cb = (int)up[(b * 3 + 2) * plane + p] - 128;
-  uint8_t* o = out + b * 3 * plane + p;
-  o[0] = clamp_u8(yv + ((cb * CB2B + HALF) >> SHIFT));
-  o[plane] = clamp_u8(yv + ((cb * CB2G + cr * CR2G + HALF) >> SHIFT));
-  o[2 * plane] = clamp_u8(yv + ((cr * CR2R + HALF) >> SHIFT));
+  srcnn_color::store_bgr(y[b * plane + p], up[(b * 3 + 1) * plane + p],
+                         up[(b * 3 + 2) * plane + p], out + b * 3 * plane + p,
+                         plane);
 }
 
 }  // namespace

@@ -1,19 +1,35 @@
-// K1: fused SRCNN 9-5-5 conv stack with IntTrim quantization, u8 -> u8.
+// K1, K4, K5: the fused SRCNN 9-5-5 conv stack, one kernel template over its
+// store (the epilogue).
 //
 // Replaces the TPU kernel srcnn_cpp_tpu/ops/pallas_srcnn.py::_kernel_stacked
-// (launched by _fused_call with quant=True, called from srcnn_y_fused), and
-// with it the XLA edge fix-up _fix_edges_batch that supplied conv3's
-// feature-column clamp on the TPU.
+// and :_kernel, launched by _fused_call, in three instances:
+//   K1 StoreU8  (srcnn_y_fused): quant=True, merge=False, with the XLA edge
+//      fix-up _fix_edges_batch that supplied conv3's feature-column clamp
+//      on the TPU;
+//   K4 StoreBGR (srcnn_merge_fused): merge=True, i.e. IntTrim, then the
+//      inverse YCrCb->BGR of Y' with the pixel's upscaled Cr/Cb
+//      (_kernel_stacked :505-521), planar BGR stored directly; its TPU
+//      entry's column patch (srcnn_merge_fused :746-758) has no counterpart;
+//   K5 StoreF32 (srcnn_y_f32_fused): conv3 + b3 in f32, unquantized, the
+//      counterpart of the legacy 8-matmul body _kernel :157.  That body
+//      leaves b3 to its wrapper and, with no row-clamp plan, leaves the
+//      outer 2 rows and columns at virtual-extension values.  K5 carries
+//      the reference's semantics instead (b3 added, both clamps below),
+//      not that TPU artefact.
+// The conv1+conv2 loop and the conv3 accumulation exist once, so the three
+// sum in the same order: quantized K5 equals K1, and K4 equals K1 -> K3,
+// bit for bit.
 //
 // What it computes, per output pixel (reference src/srcnn.cpp:189-325):
 //   f1 = ReLU(conv1 9x9 1->64 (input replicate-padded by 4) + b1)
 //   f2 = ReLU(conv2 1x1 64->32 (f1) + b2)
-//   y' = IntTrim(conv3 5x5 32->1 (f2 replicate-padded by 2 at FEATURE level) + b3)
-// IntTrim truncates toward zero, then clamps to [0, 255] before the u8 cast.
+//   v  = conv3 5x5 32->1 (f2 replicate-padded by 2 at FEATURE level) + b3
+// IntTrim(v) truncates toward zero, then clamps to [0, 255] before the u8
+// cast.
 //
 // What bounds it on the H100: FP32 issue.  ~8,000 MACs per output pixel
-// (5,184 + 2,048 + 800) against 1 byte in and 1 byte out, so memory traffic
-// is negligible and the FFMA pipe is the roof.
+// (5,184 + 2,048 + 800) against 1 byte in and 1 to 4 bytes out, so memory
+// traffic is negligible and the FFMA pipe is the roof.
 //
 // What the design does about it (simple first; tensor cores come later):
 // * one block per (TH x TW) output tile and frame, grid (ceil(W/TW),
@@ -27,12 +43,14 @@
 //   registers, every weight is a warp-uniform (broadcast) float4 read from
 //   shared memory, and conv1's channel c feeds conv2's 32 accumulators as
 //   soon as it is ReLU'd, so f1 never leaves registers;
-// * f2 (32 channels x halo) sits in shared memory for conv3; the u8 result is
-//   stored directly.  FMA contraction is allowed: the bar is <=1 LSB against
-//   the fp32 F.conv2d path.
+// * f2 (32 channels x halo) sits in shared memory for conv3; the store
+//   writes the result of each pixel directly.  FMA contraction is allowed:
+//   the bar is <=1 LSB against the fp32 F.conv2d path.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "color.cuh"
 
 namespace {
 
@@ -57,10 +75,44 @@ static_assert(WTOTAL % 4 == 0 && W2_OFF % 4 == 0 && (IH * IW) % 4 == 0,
 
 constexpr size_t SMEM_BYTES = sizeof(float) * (WTOTAL + IH * IW + C2 * NPOS);
 
+__device__ __forceinline__ uint8_t int_trim(float v) {
+  return (uint8_t)fminf(fmaxf(truncf(v), 0.f), 255.f);
+}
+
+// The stores: v = conv3 + b3 at output pixel (oy, ox) of frame b.
+struct StoreU8 {    // K1: IntTrim(v) into out [B, H, W] u8
+  uint8_t* out;
+  __device__ void operator()(int b, int oy, int ox, int H, int W,
+                             float v) const {
+    out[((size_t)b * H + oy) * W + ox] = int_trim(v);
+  }
+};
+
+struct StoreF32 {   // K5: v into out [B, H, W] f32
+  float* out;
+  __device__ void operator()(int b, int oy, int ox, int H, int W,
+                             float v) const {
+    out[((size_t)b * H + oy) * W + ox] = v;
+  }
+};
+
+struct StoreBGR {   // K4: BGR of (IntTrim(v), Cr, Cb) into out [B, 3, H, W] u8
+  const uint8_t* up;  // upscaled YCrCb [B, 3, H, W]
+  uint8_t* out;
+  __device__ void operator()(int b, int oy, int ox, int H, int W,
+                             float v) const {
+    const long long plane = (long long)H * W;
+    const long long p = (long long)b * 3 * plane + (long long)oy * W + ox;
+    srcnn_color::store_bgr(int_trim(v), up[p + plane], up[p + 2 * plane],
+                           out + p, plane);
+  }
+};
+
+template <class Store>
 __global__ void __launch_bounds__(NTHREADS)
 srcnn_conv_kernel(const uint8_t* __restrict__ y, long long frame_stride,
-                  const float* __restrict__ wpack, uint8_t* __restrict__ out,
-                  int H, int W) {
+                  const float* __restrict__ wpack, int H, int W,
+                  Store store) {
   extern __shared__ float4 smem4[];
   float* ws = reinterpret_cast<float*>(smem4);   // packed weights
   float* win = ws + WTOTAL;                      // input window
@@ -127,7 +179,7 @@ srcnn_conv_kernel(const uint8_t* __restrict__ y, long long frame_stride,
   }
   __syncthreads();
 
-  // conv3 + b3 + IntTrim on the tile's own pixels
+  // conv3 + b3 on the tile's own pixels, then the store
   for (int q = tid; q < TH * TW; q += NTHREADS) {
     const int r = q / TW, c = q - r * TW;
     const int oy = oy0 + r, ox = ox0 + c;
@@ -142,24 +194,43 @@ srcnn_conv_kernel(const uint8_t* __restrict__ y, long long frame_stride,
 #pragma unroll
         for (int dx = 0; dx < 5; ++dx) acc = fmaf(w3[dy * 5 + dx], f[dy * HW + dx], acc);
     }
-    const float v = fminf(fmaxf(truncf(acc + ws[B3_OFF]), 0.f), 255.f);
-    out[((size_t)b * H + oy) * W + ox] = (uint8_t)v;
+    store(b, oy, ox, H, W, acc + ws[B3_OFF]);
   }
+}
+
+template <class Store>
+int launch(const uint8_t* y, long long frame_stride, const float* wpack,
+           int B, int H, int W, Store store, void* stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      srcnn_conv_kernel<Store>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)SMEM_BYTES);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, B);
+  srcnn_conv_kernel<Store><<<grid, NTHREADS, SMEM_BYTES,
+                             (cudaStream_t)stream>>>(y, frame_stride, wpack,
+                                                     H, W, store);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // y: B planes of H x W u8, plane b at y + b * frame_stride (rows contiguous);
-// wpack: WTOTAL floats on the device, 16-byte aligned; out: B x H x W u8.
+// wpack: WTOTAL floats on the device, 16-byte aligned; out: B x H x W.
 extern "C" int srcnn_conv_u8(const uint8_t* y, long long frame_stride,
                              const float* wpack, uint8_t* out,
                              int B, int H, int W, void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      srcnn_conv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)SMEM_BYTES);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, B);
-  srcnn_conv_kernel<<<grid, NTHREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
-      y, frame_stride, wpack, out, H, W);
-  return (int)cudaGetLastError();
+  return launch(y, frame_stride, wpack, B, H, W, StoreU8{out}, stream);
+}
+
+extern "C" int srcnn_conv_f32(const uint8_t* y, long long frame_stride,
+                              const float* wpack, float* out,
+                              int B, int H, int W, void* stream) {
+  return launch(y, frame_stride, wpack, B, H, W, StoreF32{out}, stream);
+}
+
+// up, out: B x 3 x H x W u8, contiguous; Y is read from up[:, 0].
+extern "C" int srcnn_conv_merge_u8(const uint8_t* up, const float* wpack,
+                                   uint8_t* out, int B, int H, int W,
+                                   void* stream) {
+  return launch(up, 3LL * H * W, wpack, B, H, W, StoreBGR{up, out}, stream);
 }

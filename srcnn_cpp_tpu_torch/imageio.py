@@ -55,6 +55,24 @@ def conv_image(buf, w: int, h: int, d: int) -> np.ndarray:
     raise ValueError(f"unsupported depth {d}; expected 1, 2, 3 or 4")
 
 
+def decode_provenance() -> dict:
+    """Identify the image decoder in use: ``{"decoder", "version"}``.
+
+    JPEG decode differs between cv2 (libjpeg-turbo build settings) and
+    PIL, which shifts eval PSNR in the 3rd decimal; the evaluation harness
+    embeds this provenance in its output and warns when it differs from the
+    decoder that minted the recorded numbers.
+    """
+    if _HAVE_CV2:
+        return {"decoder": "cv2", "version": cv2.__version__}
+    try:
+        import PIL
+
+        return {"decoder": "PIL", "version": PIL.__version__}
+    except ImportError:  # pragma: no cover
+        return {"decoder": "none", "version": ""}
+
+
 def imread_bgr(path: str | Path) -> np.ndarray | None:
     """Decode an image file to BGR uint8 [H, W, 3]; None on failure."""
     path = str(path)

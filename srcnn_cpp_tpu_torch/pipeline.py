@@ -37,7 +37,8 @@ def upscale_planar(bgr_p: torch.Tensor, weights: SRCNNWeights,
     return merge_ycrcb_to_bgr_fused(y_sr, up)
 
 
-def _weights_on(weights: SRCNNWeights | None, device: torch.device):
+def weights_on(weights: SRCNNWeights | None, device: torch.device):
+    """``weights`` (the pretrained checkpoint when None) on ``device``."""
     w = weights if weights is not None else load_weights()
     return w if w.device == device else w.to(device)
 
@@ -55,7 +56,7 @@ def upscale_bgr_batch(bgr_u8, scale: float, weights: SRCNNWeights | None = None,
     h, w = bgr.shape[1:3]
     ow, oh = scaled_size(w, h, scale)
     planar = torch.from_numpy(np.ascontiguousarray(np.moveaxis(bgr, -1, 1)))
-    out = upscale_planar(planar.to(device), _weights_on(weights, device),
+    out = upscale_planar(planar.to(device), weights_on(weights, device),
                          (oh, ow))
     return np.ascontiguousarray(np.moveaxis(out.cpu().numpy(), 1, -1))
 
@@ -94,7 +95,7 @@ def process_srcnn(buf, w: int, h: int, d: int, scale: float,
     if d == 1:
         up = resize_bicubic_u8(torch.from_numpy(np.array(img)).to(device),
                                (oh, ow))
-        out = srcnn_y_fused(up, _weights_on(weights, device)).cpu().numpy()
+        out = srcnn_y_fused(up, weights_on(weights, device)).cpu().numpy()
     else:
         bgr = img[..., 2::-1]
         out = upscale_bgr(bgr, scale, weights, device)[..., ::-1]

@@ -1,12 +1,14 @@
 """Build and load the port's CUDA kernels.
 
-The three kernels of the main path (``csrc/pre_pass.cu``,
-``csrc/srcnn_conv.cu``, ``csrc/merge.cu``) have a plain C interface and
-are compiled by one ``nvcc`` call into one shared library for ``sm_90a``
-(Hopper), loaded with :mod:`ctypes`.  The library is built on first use
-into ``_build/`` beside this file, named by a hash of the sources and the
-command, so an edited source rebuilds and an unchanged one loads at once.
-A failed build raises; nothing falls back.
+The kernels (``csrc/pre_pass.cu``; ``csrc/srcnn_conv.cu``, whose template
+gives the conv, conv+merge and f32-output conv; ``csrc/merge.cu``; the
+shared ``csrc/color.cuh``) have a plain C interface.  Each ``.cu`` source is
+compiled for ``sm_90a`` (Hopper) by its own ``nvcc``, all started together,
+and the objects are linked into one shared library, loaded with
+:mod:`ctypes`.  The library is built on first use into ``_build/`` beside
+this file, named by a hash of the sources, headers and flags, so an edited
+source or header rebuilds and an unchanged one loads at once.  A failed
+build raises; nothing falls back.
 
 Every C entry point returns the ``cudaError_t`` of its launch
 (``cudaGetLastError`` right after it): a launch the device refuses never
@@ -29,12 +31,14 @@ from pathlib import Path
 CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).with_name("_build")
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+               "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 #: C signatures: name -> argtypes (every function returns an int error code)
 _SIGNATURES = {
     "srcnn_conv_u8": (_P, _LL, _P, _P, _I, _I, _I, _P),
+    "srcnn_conv_f32": (_P, _LL, _P, _P, _I, _I, _I, _P),
+    "srcnn_conv_merge_u8": (_P, _P, _P, _I, _I, _I, _P),
     "pre_pass_u8": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "merge_ycrcb_bgr_u8": (_P, _P, _P, _I, _I, _I, _P),
 }
@@ -54,9 +58,14 @@ def find_nvcc() -> str:
     return nvcc
 
 
-def nvcc_command(out: Path, nvcc: str = "nvcc") -> list[str]:
-    """The one compiler invocation that builds every kernel into ``out``."""
-    return [nvcc, *_NVCC_FLAGS, "-o", str(out), *map(str, sources())]
+def compile_command(src: Path, obj: Path, nvcc: str = "nvcc") -> list[str]:
+    """The compiler invocation that builds one source into object ``obj``."""
+    return [nvcc, *_NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+
+
+def link_command(objs, out: Path, nvcc: str = "nvcc") -> list[str]:
+    """The invocation that links the objects into the shared library."""
+    return [nvcc, "-shared", "-o", str(out), *map(str, objs)]
 
 
 def library_path() -> Path:
@@ -71,7 +80,7 @@ def library_path() -> Path:
 def build() -> tuple[Path, float, str]:
     """Compile the kernels unless already built: ``(path, seconds, log)``.
 
-    ``log`` is the compiler's output (``-Xptxas=-v``: registers, shared
+    ``log`` is the compilers' output (``-Xptxas=-v``: registers, shared
     memory and spills per kernel), also kept beside the library.
     """
     lib = library_path()
@@ -79,19 +88,35 @@ def build() -> tuple[Path, float, str]:
     if lib.exists():
         return lib, 0.0, log_path.read_text() if log_path.exists() else ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so.tmp")
-    os.close(fd)
+    nvcc = find_nvcc()
     t0 = time.perf_counter()
-    try:
-        proc = subprocess.run(nvcc_command(Path(tmp), find_nvcc()),
-                              capture_output=True, text=True)
-        log = proc.stdout + proc.stderr
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        tmp = Path(tmp)
+        jobs = []
+        for src in sources():
+            obj, out = tmp / f"{src.stem}.o", tmp / f"{src.stem}.log"
+            with open(out, "w") as f:
+                jobs.append((src, out, subprocess.Popen(
+                    compile_command(src, obj, nvcc), stdout=f,
+                    stderr=subprocess.STDOUT)))
+        logs, failed = [], []
+        for src, out, proc in jobs:
+            rc = proc.wait()
+            logs.append(f"== {src.name}\n{out.read_text()}")
+            if rc != 0:
+                failed.append(f"{src.name} (exit {rc})")
+        log = "".join(logs)
+        if failed:
+            raise RuntimeError(f"nvcc failed: {', '.join(failed)}\n{log}")
+        so = tmp / lib.name
+        proc = subprocess.run(
+            link_command([tmp / f"{s.stem}.o" for s in sources()], so, nvcc),
+            capture_output=True, text=True)
+        log += proc.stdout + proc.stderr
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n{log}")
-        os.replace(tmp, lib)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+            raise RuntimeError(f"nvcc link failed (exit {proc.returncode}):"
+                               f"\n{log}")
+        os.replace(so, lib)
     log_path.write_text(log)
     return lib, time.perf_counter() - t0, log
 

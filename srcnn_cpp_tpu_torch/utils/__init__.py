@@ -1,1 +1,1 @@
-"""Framework-free helpers: timing and exit codes."""
+"""Framework-free helpers: timing, exit codes and image-quality metrics."""

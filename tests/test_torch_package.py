@@ -17,6 +17,8 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
         "import sys\n"
         "import srcnn_cpp_tpu_torch, srcnn_cpp_tpu_torch.cli\n"
         "import srcnn_cpp_tpu_torch.pipeline, srcnn_cpp_tpu_torch.models\n"
+        "import srcnn_cpp_tpu_torch.evaluate, srcnn_cpp_tpu_torch.stream\n"
+        "import srcnn_cpp_tpu_torch.configs\n"
         "from srcnn_cpp_tpu_torch import load_weights\n"
         "load_weights()\n"
         "bad = [m for m in sys.modules\n"
@@ -96,14 +98,40 @@ def test_merge_wrapper_rejects(y, up):
 def test_nvcc_command_targets_sm90a():
     from srcnn_cpp_tpu_torch import runtime
 
-    cmd = runtime.nvcc_command(Path("/tmp/x.so"))
-    joined = " ".join(cmd)
-    assert "arch=compute_90a,code=sm_90a" in joined and "sm_90a" in joined
-    assert "-shared" in cmd and "-O3" in cmd
-    srcs = {Path(c).name for c in cmd if c.endswith(".cu")}
-    assert srcs == {"merge.cu", "pre_pass.cu", "srcnn_conv.cu"}
-    # the library name follows the sources
+    srcs = runtime.sources()
+    assert {p.name for p in srcs} == {"merge.cu", "pre_pass.cu",
+                                      "srcnn_conv.cu"}
+    for src in srcs:     # one compiler call per source, all for sm_90a
+        cmd = runtime.compile_command(src, Path("/tmp/x.o"))
+        assert "arch=compute_90a,code=sm_90a" in " ".join(cmd)
+        assert "-c" in cmd and "-O3" in cmd and cmd[-1] == str(src)
+    link = runtime.link_command([Path("/tmp/a.o"), Path("/tmp/b.o")],
+                                Path("/tmp/x.so"))
+    assert "-shared" in link and link[-2:] == ["/tmp/a.o", "/tmp/b.o"]
+    # the library name follows the sources and the shared header
     assert runtime.library_path().name.startswith("libsrcnn_kernels_")
+    assert (runtime.CSRC / "color.cuh").exists()
+
+
+def test_library_name_follows_the_header(tmp_path, monkeypatch):
+    import shutil
+
+    from srcnn_cpp_tpu_torch import runtime
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(runtime.CSRC, csrc)
+    monkeypatch.setattr(runtime, "CSRC", csrc)
+    before = runtime.library_path()
+    (csrc / "color.cuh").write_text((csrc / "color.cuh").read_text() + "\n")
+    assert runtime.library_path() != before
+
+
+def test_kernel_signatures_cover_every_entry_point():
+    from srcnn_cpp_tpu_torch import runtime
+
+    code = "".join(p.read_text() for p in runtime.sources())
+    for name in runtime._SIGNATURES:
+        assert f'extern "C" int {name}(' in code, name
 
 
 def test_kernel_sources_use_unfused_rounding_in_the_vertical_pass():
