@@ -10,7 +10,8 @@ with the launch counts set to 0 just before and read just after:
 
 * phases 2-6, the main path: ``upscale_bgr_batch`` on 4 seeded 540x960
   frames at x2 (K2 pre-pass -> K1 conv -> K3 merge), checked against the
-  plain pipeline on the card and the reference binary's goldens, and timed;
+  plain pipeline on the card and the reference binary's goldens, and timed
+  beside each kernel's bound;
 * phase 7, K4 ``srcnn_merge_fused`` (conv + merge in one kernel) on the
   main path's upscaled YCrCb batch: bit-equal to K1 -> K3;
 * phase 8, K5 ``srcnn_y_f32_fused`` (f32-output conv) on a 2160x3840
@@ -24,7 +25,11 @@ with the launch counts set to 0 just before and read just after:
 
 Any failure raises and the exit code is non-zero.  The last line of
 standard output is a JSON object ``{"ok": true, "device": {...}}``; the
-line before it lists the kernels.
+line before it lists the kernels, each with its launches on its path, its
+error against its plain version, its time and its plain version's, and its
+bound: the larger of its bytes (each input read once, each output written
+once) over 3.35 TB/s and its operations over the card's peak for their
+type (H100 SXM data sheet, at 700 W).
 
 Needs one CUDA card; exits non-zero without a result when there is none.
 """
@@ -32,6 +37,7 @@ Needs one CUDA card; exits non-zero without a result when there is none.
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -51,6 +57,12 @@ E2E_FRAC = 1e-5       # e2e: <=2 LSB, (diff > 1) on < 1e-5 of values
 K5_ATOL = 1e-2        # K5 vs fp32 F.conv2d before quantization
 EVAL_DB = 0.01        # eval: card vs CPU run and vs EVAL.md, PSNR in dB
 EVAL_SSIM = 1e-4      # eval: SSIM against EVAL.md's 4-decimal rows
+HBM_BPS = 3.35e12     # H100 SXM device memory, bytes/s
+TF32_FLOPS = 495e12   # H100 SXM dense TF32 tensor-core peak
+FP32_FLOPS = 67e12    # H100 SXM fp32 peak outside the tensor cores
+# conv body: tensor-core MACs per output pixel in 3xTF32 (conv1 2 x 81 x 64,
+# conv2 3 x 64 x 32, conv3 3 x 32 x 25)
+CONV_MACS = 2 * 81 * 64 + 3 * 64 * 32 + 3 * 32 * 25
 # EVAL.md, "Bicubic-vs-SRCNN protocol results": butterfly.png, scale ->
 # (bicubic PSNR, bicubic SSIM, SRCNN PSNR, SRCNN SSIM)
 EVAL_BUTTERFLY = {1.5: (39.80, 0.9915, 28.25, 0.9367),
@@ -91,19 +103,45 @@ def assert_equal(a, b, what: str) -> None:
 
 
 def median_ms(fn, reps: int) -> float:
-    """Median of ``reps`` CUDA-event timings of ``fn`` after a warm-up."""
+    """Median over ``reps`` CUDA-event timings of ``fn`` after a warm-up.
+
+    Each timing brackets enough back-to-back calls to fill about 2 ms and
+    is divided by their count, so a short kernel is not timed at the
+    host's launch rate.
+    """
     for _ in range(2):
         fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    inner = max(1, min(50, int(2e-3 / (time.perf_counter() - t0))))
     times = []
     for _ in range(reps):
         t0 = torch.cuda.Event(enable_timing=True)
         t1 = torch.cuda.Event(enable_timing=True)
         t0.record()
-        fn()
+        for _ in range(inner):
+            fn()
         t1.record()
         torch.cuda.synchronize()
-        times.append(t0.elapsed_time(t1))
+        times.append(t0.elapsed_time(t1) / inner)
     return statistics.median(times)
+
+
+def bound(nbytes: float, flops: float = 0.0,
+          peak: float = FP32_FLOPS) -> tuple[float, str]:
+    """``(ms, "bytes" | "operations")``: the least time for moving
+    ``nbytes`` and doing ``flops`` at ``peak``."""
+    t_bytes, t_ops = nbytes / HBM_BPS, flops / peak
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def conv_bound(npix: int, in_b: int, out_b: int) -> tuple[float, str]:
+    """The conv body on ``npix`` output pixels, ``in_b``/``out_b`` bytes
+    per pixel."""
+    return bound(npix * (in_b + out_b), 2.0 * CONV_MACS * npix, TF32_FLOPS)
 
 
 def ab_ms(kernel, plain, reps: int) -> tuple[float, float]:
@@ -146,6 +184,8 @@ def main() -> int:
         if "registers" in line or "spill" in line or "Compiling entry" in line \
                 or line.startswith("=="):
             say(f"  ptxas: {line.strip()}")
+    spilled = sum(int(n) for n in re.findall(r"(\d+) bytes spill", log))
+    say(f"  ptxas: {spilled} bytes of spill stores and loads in all kernels")
     runtime.library()
     weights = load_weights(device="cuda")
     max_err = {}
@@ -189,8 +229,11 @@ def main() -> int:
     # phase 4: K1 conv vs the fp32 F.conv2d path
     say("phase 4: K1 srcnn_y_fused vs srcnn_y_plain (TF32 off)")
     k1_err = 0
+    # [2,1079,1921] and [1,16,8]: the last tiles and m16 row tiles are
+    # partial on both axes
     for y in [u8((2, OH, OW), 40), u8((1, 1), 41), u8((3, 7), 42),
-              u8((17, 130), 43), border_batch()]:
+              u8((17, 130), 43), border_batch(), u8((2, 1079, 1921), 45),
+              u8((1, 16, 8), 46)]:
         k1_err = max(k1_err, lsb_close(srcnn_y_fused(y, weights),
                                        srcnn_y_plain(y, weights),
                                        f"K1 {list(y.shape)}"))
@@ -261,9 +304,17 @@ def main() -> int:
     ms["merge_ycrcb_to_bgr_fused"], plain_ms["merge_ycrcb_to_bgr_fused"] = \
         ab_ms(lambda: merge_ycrcb_to_bgr_fused(y_sr, up),
               lambda: merge_plain(y_sr, up), 20)
+    npix, nin = BATCH * OH * OW, BATCH * IH * IW
+    bounds = {
+        # bytes: BGR in, YCrCb out; operations: the fp32 vertical chain
+        "pre_upscale_fused": bound(3 * (nin + npix), 21.0 * npix),
+        "srcnn_y_fused": conv_bound(npix, 1, 1),
+        # bytes: Y', Cr, Cb in and BGR out
+        "merge_ycrcb_to_bgr_fused": bound(6 * npix),
+    }
     for name in ms:
-        say(f"  {name}: {ms[name]:.4f} ms, plain {plain_ms[name]:.4f} ms "
-            f"({gpu})")
+        say(f"  {name}: {ms[name]:.4f} ms, plain {plain_ms[name]:.4f} ms, "
+            f"bound {bounds[name][0]:.4f} ms ({bounds[name][1]}) ({gpu})")
     mpix = BATCH * OH * OW / 1e6
     dev_ms = median_ms(lambda: upscale_planar(x, weights, (OH, OW)), 10)
     say(f"  e2e device-resident upscale_planar: {dev_ms:.4f} ms, "
@@ -284,7 +335,7 @@ def main() -> int:
     phase_eval(extra)
     phase_stream(extra)
     phase_single_8k(extra)
-    phase_timings(extra, ms, plain_ms)
+    phase_timings(extra, ms, plain_ms, bounds)
 
     replaces = {
         "pre_upscale_fused": ("srcnn_cpp_tpu_torch/csrc/pre_pass.cu",
@@ -298,9 +349,12 @@ def main() -> int:
         "srcnn_y_f32_fused": ("srcnn_cpp_tpu_torch/csrc/srcnn_conv.cu",
                               "srcnn_cpp_tpu/ops/pallas_srcnn.py:157"),
     }
+    # library_ms: no single PyTorch call computes any of these functions
     kernels = [{"name": n, "route": "cuda", "source": src, "replaces": rep,
                 "launches": launches[n], "max_abs_err": max_err[n],
-                "ms": ms[n], "plain_ms": plain_ms[n]}
+                "ms": ms[n], "plain_ms": plain_ms[n],
+                "bound_ms": bounds[n][0], "bound_by": bounds[n][1],
+                "library_ms": None}
                for n, (src, rep) in replaces.items()]
     say(f"card: {gpu}")
     say(json.dumps({"kernels": kernels}))
@@ -543,7 +597,7 @@ def phase_single_8k(e: Extra) -> None:
         raise AssertionError("single_8k differs from the plain pipeline")
 
 
-def phase_timings(e: Extra, ms: dict, plain_ms: dict) -> None:
+def phase_timings(e: Extra, ms: dict, plain_ms: dict, bounds: dict) -> None:
     from srcnn_cpp_tpu_torch.ops.cuda_merge import merge_ycrcb_to_bgr_fused
     from srcnn_cpp_tpu_torch.ops.cuda_srcnn import (srcnn_merge_fused,
                                                     srcnn_merge_plain,
@@ -560,15 +614,20 @@ def phase_timings(e: Extra, ms: dict, plain_ms: dict) -> None:
     k4, chain = ab_ms(
         lambda: srcnn_merge_fused(up, w),
         lambda: merge_ycrcb_to_bgr_fused(srcnn_y_fused(up[:, 0], w), up), 10)
+    npix = up.shape[0] * up.shape[2] * up.shape[3]
+    bounds["srcnn_merge_fused"] = conv_bound(npix, 3, 3)
     say(f"  srcnn_merge_fused: {ms['srcnn_merge_fused']:.4f} ms, plain "
-        f"{plain_ms['srcnn_merge_fused']:.4f} ms; in turns with K1 -> K3 "
+        f"{plain_ms['srcnn_merge_fused']:.4f} ms, bound "
+        f"{bounds['srcnn_merge_fused'][0]:.4f} ms; in turns with K1 -> K3 "
         f"chained: K4 {k4:.4f} ms, K1 -> K3 {chain:.4f} ms ({e.gpu})")
     ms["srcnn_y_f32_fused"], plain_ms["srcnn_y_f32_fused"] = ab_ms(
         lambda: srcnn_y_f32_fused(y4k, w),
         lambda: srcnn_y_f32_plain(y4k, w), 10)
     k1 = median_ms(lambda: srcnn_y_fused(y4k, w), 10)
+    bounds["srcnn_y_f32_fused"] = conv_bound(y4k.numel(), 1, 4)
     say(f"  srcnn_y_f32_fused: {ms['srcnn_y_f32_fused']:.4f} ms, plain "
-        f"{plain_ms['srcnn_y_f32_fused']:.4f} ms; K1 on the same plane "
+        f"{plain_ms['srcnn_y_f32_fused']:.4f} ms, bound "
+        f"{bounds['srcnn_y_f32_fused'][0]:.4f} ms; K1 on the same plane "
         f"{k1:.4f} ms ({e.gpu})")
 
 

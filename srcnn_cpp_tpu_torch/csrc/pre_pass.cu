@@ -17,18 +17,25 @@
 // bit identity on exact .5 boundaries; the vertical chain therefore uses the
 // __fmul_rn / __fadd_rn intrinsics, which are never contracted.
 //
-// What bounds it on the H100: bytes.  The arithmetic is a few hundred integer
-// ops per output pixel; the device-memory traffic is one read of the
-// low-resolution BGR frame and one write of the 3-plane output.
+// What bounds it on the H100: bytes.  One read of the low-resolution BGR
+// frame and one write of the 3-plane output; the arithmetic per input pixel
+// (one color conversion) and per output pixel (a share of the horizontal
+// taps, 4 vertical taps per channel) is a few dozen operations.
 //
-// What the design does about it (simple first): one thread per output pixel
-// computes all three channels, so each tapped BGR pixel is read once for
-// three planes; the 16 taps of neighbouring threads overlap and are served
-// from L1/L2, so device memory sees close to one read per input byte.  The
-// tap tables are per-geometry int32/f32 arrays built on the host from
-// cv_cubic_tables and read as one 16-byte vector per axis.  The gather form
-// covers every scale (x1.2, x2.75, ...), where the TPU's phase plans covered
-// only source steps S <= 4.
+// What the design does about it: a block owns a tile of output pixels.  Its
+// input window comes from the tap tables themselves: rows y0 .. y0+WH-1 and
+// columns x0 .. x0+WW-1, where (x0, y0) is the smallest tap of the tile's
+// columns and rows and (WW, WH) the largest span over all tiles, all
+// planned on the host (ops/cuda_resize.py::pre_pass_plan).  The tables
+// clamp, so the replicated border and every scale come for free.  Then:
+//   1. each window pixel is read from device memory and converted to YCrCb
+//      once, into shared memory;
+//   2. the horizontal integer pass runs once per window row and output
+//      column, into shared memory;
+//   3. the vertical float chain runs once per output pixel and channel.
+// A block is BX x BY threads: thread x owns output column x of the tile in
+// steps 2 and 3 (its column taps are loaded once), and the BY thread rows
+// stride over the window and tile rows, so no index needs a division.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -37,77 +44,111 @@ namespace {
 
 constexpr int SHIFT = 14, HALF = 1 << (SHIFT - 1), DELTA = 128 << SHIFT;
 constexpr int R2Y = 4899, G2Y = 9617, B2Y = 1868, R2CR = 11682, B2CB = 9241;
+constexpr int BX = 64, BY = 4;   // threads: one column of the tile each,
+                                 // BY rows at a time; the tile is <= BX wide
 
 __device__ __forceinline__ int clamp_u8(int v) { return min(max(v, 0), 255); }
 
-__global__ void pre_pass_kernel(const uint8_t* __restrict__ bgr,
-                                const int4* __restrict__ xi,
-                                const int4* __restrict__ xic,
-                                const int4* __restrict__ yi,
-                                const float4* __restrict__ yfc,
-                                uint8_t* __restrict__ out,
-                                int H, int W, int OH, int OW) {
-  const int ox = blockIdx.x * blockDim.x + threadIdx.x;
-  const int oy = blockIdx.y * blockDim.y + threadIdx.y;
-  const int b = blockIdx.z;
-  if (ox >= OW || oy >= OH) return;
+__global__ void __launch_bounds__(BX * BY)
+pre_pass_kernel(const uint8_t* __restrict__ bgr, const int4* __restrict__ xi,
+                const int4* __restrict__ xic, const int4* __restrict__ yi,
+                const float4* __restrict__ yfc, const int* __restrict__ x0s,
+                const int* __restrict__ y0s, uint8_t* __restrict__ out,
+                int H, int W, int OH, int OW, int TH, int TW, int WH,
+                int WW) {
+  extern __shared__ int4 smem4[];
+  int* hs = reinterpret_cast<int*>(smem4);     // [3][WH][TW] horizontal sums
+  const int wws = (WW + 3) & ~3;
+  uint8_t* ycc = reinterpret_cast<uint8_t*>(hs + 3 * WH * TW);  // [3][WH][wws]
 
+  const int tx = threadIdx.x, ty = threadIdx.y, b = blockIdx.z;
+  const int ox0 = blockIdx.x * TW, oy0 = blockIdx.y * TH;
+  const int x0 = x0s[blockIdx.x], y0 = y0s[blockIdx.y];
+  const int tw = min(TW, OW - ox0), th = min(TH, OH - oy0);
+  const int wh = min(WH, H - y0), ww = min(WW, W - x0);
   const size_t plane = (size_t)H * W;
   const uint8_t* pb = bgr + (size_t)b * 3 * plane;
-  const uint8_t* pg = pb + plane;
-  const uint8_t* pr = pg + plane;
 
-  const int4 cx4 = xi[ox], wx4 = xic[ox], ry4 = yi[oy];
-  const float4 fy4 = yfc[oy];
-  const int cx[4] = {cx4.x, cx4.y, cx4.z, cx4.w};
-  const int wx[4] = {wx4.x, wx4.y, wx4.z, wx4.w};
-  const int ry[4] = {ry4.x, ry4.y, ry4.z, ry4.w};
-  const float fy[4] = {fy4.x, fy4.y, fy4.z, fy4.w};
-
-  int hs[3][4];   // horizontal int32 sums per channel and vertical tap
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const size_t ro = (size_t)ry[k] * W;
-    int s0 = 0, s1 = 0, s2 = 0;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int bb = pb[ro + cx[j]], gg = pg[ro + cx[j]], rr = pr[ro + cx[j]];
-      const int yv = clamp_u8((bb * B2Y + gg * G2Y + rr * R2Y + HALF) >> SHIFT);
-      const int cr = clamp_u8(((rr - yv) * R2CR + DELTA + HALF) >> SHIFT);
-      const int cb = clamp_u8(((bb - yv) * B2CB + DELTA + HALF) >> SHIFT);
-      s0 += yv * wx[j];
-      s1 += cr * wx[j];
-      s2 += cb * wx[j];
+  // 1. the window, converted to YCrCb once per pixel
+#pragma unroll 4
+  for (int r = ty; r < wh; r += BY) {
+    const uint8_t* src = pb + (size_t)(y0 + r) * W + x0;
+    for (int c = tx; c < ww; c += BX) {
+      const int bb = src[c], gg = src[plane + c], rr = src[2 * plane + c];
+      const int yv =
+          clamp_u8((bb * B2Y + gg * G2Y + rr * R2Y + HALF) >> SHIFT);
+      uint8_t* d = ycc + r * wws + c;
+      d[0] = (uint8_t)yv;
+      d[WH * wws] =
+          (uint8_t)clamp_u8(((rr - yv) * R2CR + DELTA + HALF) >> SHIFT);
+      d[2 * WH * wws] =
+          (uint8_t)clamp_u8(((bb - yv) * B2CB + DELTA + HALF) >> SHIFT);
     }
-    hs[0][k] = s0;
-    hs[1][k] = s1;
-    hs[2][k] = s2;
   }
+  __syncthreads();
 
-  const size_t oplane = (size_t)OH * OW;
-  uint8_t* o = out + (size_t)b * 3 * oplane + (size_t)oy * OW + ox;
+  // 2. the horizontal pass, once per window row and output column
+  if (tx < tw) {
+    const int4 cx4 = xi[ox0 + tx], wx4 = xic[ox0 + tx];
+    const int cx[4] = {cx4.x - x0, cx4.y - x0, cx4.z - x0, cx4.w - x0};
+    const int wx[4] = {wx4.x, wx4.y, wx4.z, wx4.w};
+#pragma unroll 4
+    for (int r = ty; r < wh; r += BY) {
 #pragma unroll
-  for (int ch = 0; ch < 3; ++ch) {
-    float r = __fmul_rn((float)hs[ch][3], fy[3]);
-    r = __fadd_rn(__fmul_rn((float)hs[ch][2], fy[2]), r);
-    r = __fadd_rn(__fmul_rn((float)hs[ch][1], fy[1]), r);
-    r = __fadd_rn(__fmul_rn((float)hs[ch][0], fy[0]), r);
-    o[ch * oplane] = (uint8_t)fminf(fmaxf(rintf(r), 0.f), 255.f);
+      for (int ch = 0; ch < 3; ++ch) {
+        const uint8_t* row = ycc + (ch * WH + r) * wws;
+        int s = 0;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s += row[cx[j]] * wx[j];
+        hs[(ch * WH + r) * TW + tx] = s;
+      }
+    }
+  }
+  __syncthreads();
+
+  // 3. the vertical pass, once per output pixel and channel
+  if (tx < tw) {
+    const size_t oplane = (size_t)OH * OW;
+#pragma unroll 4
+    for (int r = ty; r < th; r += BY) {
+      const int oy = oy0 + r;
+      const int4 ry4 = yi[oy];
+      const float4 fy4 = yfc[oy];
+      const int ry[4] = {ry4.x - y0, ry4.y - y0, ry4.z - y0, ry4.w - y0};
+      const float fy[4] = {fy4.x, fy4.y, fy4.z, fy4.w};
+      uint8_t* o = out + (size_t)b * 3 * oplane + (size_t)oy * OW + ox0 + tx;
+#pragma unroll
+      for (int ch = 0; ch < 3; ++ch) {
+        const int* col = hs + ch * WH * TW + tx;
+        float v = __fmul_rn((float)col[ry[3] * TW], fy[3]);
+        v = __fadd_rn(__fmul_rn((float)col[ry[2] * TW], fy[2]), v);
+        v = __fadd_rn(__fmul_rn((float)col[ry[1] * TW], fy[1]), v);
+        v = __fadd_rn(__fmul_rn((float)col[ry[0] * TW], fy[0]), v);
+        o[ch * oplane] = (uint8_t)fminf(fmaxf(rintf(v), 0.f), 255.f);
+      }
+    }
   }
 }
 
 }  // namespace
 
 // bgr: B x 3 x H x W u8, contiguous; xi/xic: OW x 4 int32; yi: OH x 4 int32;
-// yfc: OH x 4 float32 (all contiguous, 16-byte aligned); out: B x 3 x OH x OW.
+// yfc: OH x 4 float32 (all contiguous, 16-byte aligned); x0s: ceil(OW/TW)
+// and y0s: ceil(OH/TH) int32 window origins; out: B x 3 x OH x OW.
+// (TH, TW, WH, WW, smem_bytes): ops/cuda_resize.py::pre_pass_plan.
 extern "C" int pre_pass_u8(const uint8_t* bgr, const int* xi, const int* xic,
-                           const int* yi, const float* yfc, uint8_t* out,
-                           int B, int H, int W, int OH, int OW, void* stream) {
-  const dim3 block(32, 8);
-  const dim3 grid((OW + 31) / 32, (OH + 7) / 8, B);
-  pre_pass_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
+                           const int* yi, const float* yfc, const int* x0s,
+                           const int* y0s, uint8_t* out, int B, int H, int W,
+                           int OH, int OW, int TH, int TW, int WH, int WW,
+                           int smem_bytes, void* stream) {
+  if (TH <= 0 || TW <= 0 || TW > BX || WH <= 0 || WW <= 0 ||
+      smem_bytes < 3 * WH * TW * 4 + 3 * WH * ((WW + 3) & ~3) ||
+      smem_bytes > 48 * 1024)
+    return (int)cudaErrorInvalidValue;   // not a plan of pre_pass_plan
+  const dim3 grid((OW + TW - 1) / TW, (OH + TH - 1) / TH, B);
+  pre_pass_kernel<<<grid, dim3(BX, BY), smem_bytes, (cudaStream_t)stream>>>(
       bgr, reinterpret_cast<const int4*>(xi), reinterpret_cast<const int4*>(xic),
       reinterpret_cast<const int4*>(yi), reinterpret_cast<const float4*>(yfc),
-      out, H, W, OH, OW);
+      x0s, y0s, out, H, W, OH, OW, TH, TW, WH, WW);
   return (int)cudaGetLastError();
 }

@@ -1,0 +1,197 @@
+"""Time this tree's kernels against another checkout's, in turns, on one card.
+
+    git archive <commit> | tar -x -C _ab/parent      # any listed scratch dir
+    python -m srcnn_cpp_tpu_torch.kernel_ab --parent _ab/parent
+
+Loads the other checkout's ``srcnn_cpp_tpu_torch`` under another module
+name beside this one, builds both kernel libraries, and on the x2 main
+geometry (4 seeded 540x960 BGR frames -> 4 x 1080x1920) times, with CUDA
+events, the conv K1 (``srcnn_y_fused``), the pre-pass K2
+(``pre_upscale_fused``) and the device-resident pipeline
+(``upscale_planar``) of both, in turns (parent, change, change, parent) for
+``--rounds`` rounds.  Before timing it checks that both give the same K2
+output and K1 outputs within 1 LSB of each other, and it profiles 20 calls
+of each pipeline (``torch.profiler``: device time by kernel, busy share of
+the span).  Prints one line per round and a JSON summary (medians over the
+rounds, the profiles, the card's name and power limit), also written to
+``--out``.  Needs a CUDA card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib
+import importlib.util
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+_ALIAS = "srcnn_ab_parent"
+
+
+def load_checkout(root: Path, alias: str = _ALIAS):
+    """Import ``root/srcnn_cpp_tpu_torch`` as package ``alias``."""
+    pkg = Path(root).resolve() / "srcnn_cpp_tpu_torch"
+    spec = importlib.util.spec_from_file_location(
+        alias, pkg / "__init__.py", submodule_search_locations=[str(pkg)])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[alias] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _median_ms(fn, reps: int) -> float:
+    """Median over ``reps`` CUDA-event timings, each of enough back-to-back
+    calls to fill about 2 ms, divided by their count."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    inner = max(1, min(50, int(2e-3 / (time.perf_counter() - t0))))
+    times = []
+    for _ in range(reps):
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        for _ in range(inner):
+            fn()
+        t1.record()
+        torch.cuda.synchronize()
+        times.append(t0.elapsed_time(t1) / inner)
+    return statistics.median(times)
+
+
+def profile(fn, iters: int = 20) -> dict:
+    """Device time by kernel over ``iters`` back-to-back calls of ``fn``
+    (``torch.profiler``), and the busy share of their CUDA-event span."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    fn()
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        for _ in range(iters):
+            fn()
+        t1.record()
+        torch.cuda.synchronize()
+    span = t0.elapsed_time(t1)
+    kernels = {}
+    for ev in prof.key_averages():
+        dev = getattr(ev, "self_device_time_total", None)
+        if dev is None:
+            dev = getattr(ev, "self_cuda_time_total", 0)
+        if dev > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
+            kernels[ev.key[:80]] = dev / 1e3 / iters   # ms per call
+    busy = sum(kernels.values())
+    return {"span_ms_per_call": span / iters, "device_ms_per_call": busy,
+            "busy_share": busy * iters / span if span else None,
+            "kernels_ms_per_call": kernels}
+
+
+def _card() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--id=0", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip()
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", required=True, type=Path,
+                    help="root of the checkout to compare against")
+    ap.add_argument("--rounds", type=int, default=3)
+    ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--out", type=Path, default=Path("chiprun_out/ab.json"))
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("kernel_ab: needs a CUDA card", file=sys.stderr)
+        return 1
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = _card()
+
+    load_checkout(args.parent)
+    sides = {}
+    for tag, name in (("parent", _ALIAS), ("change", "srcnn_cpp_tpu_torch")):
+        m = {k: importlib.import_module(f"{name}.{k}") for k in
+             ("runtime", "pipeline", "weights", "ops.cuda_srcnn",
+              "ops.cuda_resize")}
+        path, secs, _ = m["runtime"].build()
+        m["runtime"].library()
+        print(f"{tag}: built {path} in {secs:.1f} s", flush=True)
+        sides[tag] = m
+
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.integers(0, 256, (4, 3, 540, 960),
+                                      dtype=np.uint8)).cuda()
+    hw = (1080, 1920)
+    fns = {}
+    ups = {}
+    for tag, m in sides.items():
+        w = m["weights"].load_weights(device="cuda")
+        pre = m["ops.cuda_resize"].pre_upscale_fused
+        conv = m["ops.cuda_srcnn"].srcnn_y_fused
+        ups[tag] = pre(x, hw)
+        up = ups[tag]
+        fns[tag] = {
+            "srcnn_y_fused": (lambda c=conv, u=up, w=w: c(u[:, 0], w)),
+            "pre_upscale_fused": (lambda p=pre: p(x, hw)),
+            "upscale_planar": (lambda m=m, w=w:
+                               m["pipeline"].upscale_planar(x, w, hw)),
+        }
+    if not torch.equal(ups["parent"], ups["change"]):
+        raise AssertionError("K2 outputs differ between the two trees")
+    d = (fns["parent"]["srcnn_y_fused"]().int()
+         - fns["change"]["srcnn_y_fused"]().int()).abs()
+    print(f"K1 parent vs change: max {int(d.max())} LSB, differing "
+          f"{float((d > 0).float().mean()):.2e}", flush=True)
+    if int(d.max()) > 1:
+        raise AssertionError("K1 outputs differ by more than 1 LSB")
+
+    rounds = []
+    for r in range(args.rounds):
+        row = {}
+        for name in fns["change"]:
+            p = [_median_ms(fns["parent"][name], args.reps)]
+            c = [_median_ms(fns["change"][name], args.reps) for _ in range(2)]
+            p.append(_median_ms(fns["parent"][name], args.reps))
+            row[name] = {"parent": p, "change": c}
+            print(f"round {r}: {name}: parent {p[0]:.4f}/{p[1]:.4f} ms, "
+                  f"change {c[0]:.4f}/{c[1]:.4f} ms ({card})", flush=True)
+        rounds.append(row)
+    summary = {"card": card, "geometry": "4x3x540x960 -> 4x3x1080x1920",
+               "profile": {tag: profile(fns[tag]["upscale_planar"])
+                           for tag in ("parent", "change")},
+               "rounds": rounds, "median_ms": {
+                   name: {side: statistics.median(
+                       v for row in rounds for v in row[name][side])
+                       for side in ("parent", "change")}
+                   for name in fns["change"]}}
+    args.out.parent.mkdir(parents=True, exist_ok=True)
+    args.out.write_text(json.dumps(summary, indent=1))
+    for tag in ("parent", "change"):
+        pr = summary["profile"][tag]
+        print(f"profile {tag}: span {pr['span_ms_per_call']:.4f} ms/call, "
+              f"device {pr['device_ms_per_call']:.4f} ms/call, busy "
+              f"{pr['busy_share']:.3f}; " + ", ".join(
+                  f"{k} {v:.4f}" for k, v in sorted(
+                      pr["kernels_ms_per_call"].items(),
+                      key=lambda kv: -kv[1])), flush=True)
+    print(json.dumps(summary["median_ms"]), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

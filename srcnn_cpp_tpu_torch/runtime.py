@@ -36,10 +36,10 @@ _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 #: C signatures: name -> argtypes (every function returns an int error code)
 _SIGNATURES = {
-    "srcnn_conv_u8": (_P, _LL, _P, _P, _I, _I, _I, _P),
-    "srcnn_conv_f32": (_P, _LL, _P, _P, _I, _I, _I, _P),
-    "srcnn_conv_merge_u8": (_P, _P, _P, _I, _I, _I, _P),
-    "pre_pass_u8": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "srcnn_conv_u8": (_P, _LL, _P, _P, *(_I,) * 7, _P),
+    "srcnn_conv_f32": (_P, _LL, _P, _P, *(_I,) * 7, _P),
+    "srcnn_conv_merge_u8": (_P, _P, _P, *(_I,) * 7, _P),
+    "pre_pass_u8": (*(_P,) * 8, *(_I,) * 10, _P),
     "merge_ycrcb_bgr_u8": (_P, _P, _P, _I, _I, _I, _P),
 }
 

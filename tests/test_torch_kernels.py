@@ -4,7 +4,7 @@ On the CPU each wrapper runs its plain PyTorch version; those tests hold the
 wrapper against the JAX package's Pallas kernel (interpret mode on the CPU
 backend, as the JAX package's own tests run it) and its XLA path.
 Tolerances: K1 <=1 LSB on < 5e-3 of pixels (split-precision bf16 matmuls on
-the JAX side, fp32 on the port's); K2 <=1 LSB on < 1e-4 of pixels (XLA:CPU
+the JAX side, fp32 on the port's plain path); K2 <=1 LSB on < 1e-4 of pixels (XLA:CPU
 FMA contraction on the JAX side, srcnn_cpp_tpu/ops/pallas_resize.py:28-37);
 K3 bit-exact.
 
@@ -75,19 +75,45 @@ def test_srcnn_wrapper_counts_plain_calls_on_cpu(tweights):
 
 
 def test_pack_weights_layout(tweights):
-    from srcnn_cpp_tpu_torch.ops.cuda_srcnn import PACKED_SIZE, pack_weights
+    # the 3xTF32 layout: hi/lo planes of w1 [88][64], w2 [64][32] and
+    # w3 [32][32] in mma.sync B-fragment order (lane (g, t) holds
+    # k = t, t+4 of column n = g of each k8 x n8 tile), biases in between
+    from srcnn_cpp_tpu_torch.ops.cuda_srcnn import (PACKED_SIZE, c_to_a_perm,
+                                                    pack_weights)
 
     p = pack_weights(tweights)
     assert p.shape == (PACKED_SIZE,) and p.dtype == torch.float32
-    w1 = p[:64 * 84].reshape(64, 84)
-    assert torch.equal(w1[:, :81], tweights.conv1_w.reshape(64, 81))
-    assert not w1[:, 81:].any()
-    assert torch.equal(p[5376:5440], tweights.conv1_b)
-    w2t = p[5440:7488].reshape(64, 32)
-    assert torch.equal(w2t, tweights.conv2_w.reshape(32, 64).t())
-    assert torch.equal(p[7488:7520], tweights.conv2_b)
-    assert torch.equal(p[7520:8320], tweights.conv3_w.reshape(-1))
-    assert p[8320] == tweights.conv3_b[0] and not p[8321:].any()
+    assert pack_weights(tweights) is p              # cached per weights
+
+    def planes(off, k, n):
+        blk = p[off:off + k * n * 2].reshape(k // 8, n // 8, 32, 4)
+        hi, lo = torch.zeros((k, n)), torch.zeros((k, n))
+        for lane in range(32):
+            g, t = divmod(lane, 4)
+            for r, kr in enumerate((t, t + 4)):
+                hi[kr::8, g::8] = blk[:, :, lane, r]
+                lo[kr::8, g::8] = blk[:, :, lane, 2 + r]
+        return hi, lo
+
+    perm = c_to_a_perm()
+    want = {
+        0: (88, 64, torch.cat([tweights.conv1_w.reshape(64, 81).t(),
+                               torch.zeros((7, 64))])),
+        11328: (64, 32, tweights.conv2_w.reshape(32, 64)[:, perm].t()),
+        15456: (32, 32, torch.cat([tweights.conv3_w.reshape(32, 25)[perm[:32]],
+                                   torch.zeros((32, 7))], dim=1)),
+    }
+    for off, (k, n, w) in want.items():
+        hi, lo = planes(off, k, n)
+        assert not (hi.view(torch.int32) & 0x1FFF).any()   # low 13 bits clear
+        rel = ((hi + lo - w).abs() / w.abs().clamp_min(1e-30)).max()
+        assert float(rel) <= 2.0 ** -21, (off, float(rel))
+        assert torch.equal(hi + lo, w)                  # exact in fp32
+        assert not (hi[w == 0].any() or lo[w == 0].any())  # zero padding
+    assert not planes(0, 88, 64)[0][81:].any()          # K padded to 88
+    assert torch.equal(p[11264:11328], tweights.conv1_b)
+    assert torch.equal(p[15424:15456], tweights.conv2_b)
+    assert p[17504] == tweights.conv3_b[0] and not p[17505:].any()
 
 
 # --- K2 ------------------------------------------------------------------------
@@ -159,7 +185,8 @@ def _dev(a, device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(2, 1080, 1920), (1, 1), (3, 7),
-                                   (17, 130), (3, 48, 200)])
+                                   (17, 130), (3, 48, 200), (2, 1079, 1921),
+                                   (1, 16, 8)])
 def test_cuda_srcnn_matches_plain(cuda, cuda_weights, shape):
     from srcnn_cpp_tpu_torch.ops.cuda_srcnn import srcnn_y_fused, srcnn_y_plain
 
@@ -174,6 +201,7 @@ def test_cuda_srcnn_matches_plain(cuda, cuda_weights, shape):
 @pytest.mark.parametrize("shape,s", [((2, 3, 540, 960), 2.0),
                                      ((2, 3, 540, 960), 1.5),
                                      ((2, 3, 540, 960), 1.2),
+                                     ((2, 3, 540, 960), 0.75),
                                      ((1, 3, 333, 517), 2.75)])
 def test_cuda_pre_pass_matches_plain(cuda, shape, s):
     from srcnn_cpp_tpu_torch.ops.cuda_resize import (pre_upscale_fused,
