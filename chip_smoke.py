@@ -21,7 +21,12 @@ with the launch counts set to 0 just before and read just after:
 * phase 10, the stream: ``StreamUpscaler`` at 1920x1080 x2, bit-equal to
   ``upscale_bgr_batch`` and in order; its two rate modes;
 * phase 11, the ``single_8k`` configuration: 3840x2160 -> 7680x4320;
-* phase 12, timings of K4 and K5 with CUDA events.
+* phase 12, timings of K4 and K5 with CUDA events;
+* phase 13, training: ``train.fit`` on ``tests/data/eval`` at x2 (SRCNN
+  9-5-5 from the checkpoint, batch 64 of 33x33 patches, Adam 1e-4, 50
+  steps), its gradients and first steps against the port's CPU run and a
+  float64 run, the step's time beside its bound, and the trained weights
+  through a checkpoint and back into the main path (K2 -> K1 -> K3).
 
 Any failure raises and the exit code is non-zero.  The last line of
 standard output is a JSON object ``{"ok": true, "device": {...}}``; the
@@ -55,6 +60,10 @@ OH, OW = 2 * IH, 2 * IW
 K1_FRAC = 5e-3        # K1 vs fp32 F.conv2d: <=1 LSB on < 0.5% of pixels
 E2E_FRAC = 1e-5       # e2e: <=2 LSB, (diff > 1) on < 1e-5 of values
 K5_ATOL = 1e-2        # K5 vs fp32 F.conv2d before quantization
+TRAIN_RTOL = 1e-4     # train: the card's first losses vs the CPU's
+GRAD_REL = 1e-4       # train: gradients, relative to the tensor's max |g|
+UPDATE_REL = 5e-3     # train: weight updates, relative to the largest
+TRAIN_STEPS = 50      # train: steps of fit() on the card
 EVAL_DB = 0.01        # eval: card vs CPU run and vs EVAL.md, PSNR in dB
 EVAL_SSIM = 1e-4      # eval: SSIM against EVAL.md's 4-decimal rows
 HBM_BPS = 3.35e12     # H100 SXM device memory, bytes/s
@@ -86,6 +95,16 @@ def card() -> str:
 def u8(shape, seed: int) -> torch.Tensor:
     g = torch.Generator().manual_seed(seed)
     return torch.randint(0, 256, shape, dtype=torch.uint8, generator=g).cuda()
+
+
+def at_offset(t: torch.Tensor, offset: int) -> torch.Tensor:
+    """A contiguous copy of u8 ``t`` that starts ``offset`` bytes into a
+    larger buffer on the card."""
+    buf = torch.empty(t.numel() + offset, dtype=torch.uint8, device=t.device)
+    view = buf[offset:].view(t.shape)
+    view.copy_(t)
+    assert view.is_contiguous() and view.data_ptr() % 16 == offset % 16
+    return view
 
 
 def diff(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -166,6 +185,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
 
     from srcnn_cpp_tpu_torch import runtime
+    from srcnn_cpp_tpu_torch.kernel_ab import graph_ms, profile
     from srcnn_cpp_tpu_torch.ops.cuda_merge import (merge_plain,
                                                     merge_ycrcb_to_bgr_fused)
     from srcnn_cpp_tpu_torch.ops.cuda_resize import (pre_upscale_fused,
@@ -192,11 +212,21 @@ def main() -> int:
 
     # phase 2: K3 merge vs plain, bit-equal
     say("phase 2: K3 merge_ycrcb_to_bgr_fused vs merge_plain")
+    # 16-byte units where H*W % 16 == 0; one thread per pixel elsewhere
     for i, (b, h, w) in enumerate([(2, 1080, 1920), (2, 537, 1111),
-                                   (1, 12, 128)]):
+                                   (1, 12, 128), (1, 1, 1), (3, 7, 13),
+                                   (2, 1079, 1921)]):
         y, up = u8((b, h, w), 10 + i), u8((b, 3, h, w), 20 + i)
         assert_equal(merge_ycrcb_to_bgr_fused(y, up), merge_plain(y, up),
                      f"[{b},3,{h},{w}]")
+    # contiguous inputs at byte offsets into a larger buffer: misaligned
+    # (one thread per pixel), or offset by whole 16-byte words (16-byte
+    # units)
+    for y_off, up_off in ((1, 0), (0, 3), (1, 1), (16, 48)):
+        y, up = u8((2, 64, 96), 16), u8((2, 3, 64, 96), 17)
+        ym, upm = at_offset(y, y_off), at_offset(up, up_off)
+        assert_equal(merge_ycrcb_to_bgr_fused(ym, upm), merge_plain(y, up),
+                     f"[2,3,64,96], Y' at +{y_off} B, YCrCb at +{up_off} B")
     y = torch.arange(256, dtype=torch.uint8).repeat(1, 8, 1).cuda()
     for cr, cb in [(0, 0), (255, 255), (0, 255), (255, 0), (128, 128)]:
         up = torch.empty((1, 3, 8, 256), dtype=torch.uint8, device="cuda")
@@ -292,6 +322,7 @@ def main() -> int:
     # phase 6: timings at the x2 geometry (CUDA events, medians)
     say(f"phase 6: timings, [{BATCH},3,{IH},{IW}] -> [{BATCH},3,{OH},{OW}], "
         f"card {gpu}")
+    # every kernel launched back to back from the host, as in earlier runs
     ms, plain_ms = {}, {}
     ms["pre_upscale_fused"], plain_ms["pre_upscale_fused"] = ab_ms(
         lambda: pre_upscale_fused(x, (OH, OW)),
@@ -304,6 +335,15 @@ def main() -> int:
     ms["merge_ycrcb_to_bgr_fused"], plain_ms["merge_ycrcb_to_bgr_fused"] = \
         ab_ms(lambda: merge_ycrcb_to_bgr_fused(y_sr, up),
               lambda: merge_plain(y_sr, up), 20)
+    # K2 and K3 take tens of microseconds, about their wrappers' host time:
+    # the card's own time comes from CUDA graph replays and the profiler
+    k23 = (("pre_upscale_fused", lambda: pre_upscale_fused(x, (OH, OW))),
+           ("merge_ycrcb_to_bgr_fused",
+            lambda: merge_ycrcb_to_bgr_fused(y_sr, up)))
+    say("  from CUDA graph replays: " + ", ".join(
+        f"{n} {graph_ms(f, 20):.4f} ms" for n, f in k23) + "; profiler "
+        "device time of 20 calls: " + ", ".join(
+        f"{n} {profile(f)['device_ms_per_call']:.4f} ms" for n, f in k23))
     npix, nin = BATCH * OH * OW, BATCH * IH * IW
     bounds = {
         # bytes: BGR in, YCrCb out; operations: the fp32 vertical chain
@@ -315,6 +355,18 @@ def main() -> int:
     for name in ms:
         say(f"  {name}: {ms[name]:.4f} ms, plain {plain_ms[name]:.4f} ms, "
             f"bound {bounds[name][0]:.4f} ms ({bounds[name][1]}) ({gpu})")
+    # H*W % 16 != 0: K3 runs one thread per pixel
+    y_odd, up_odd = u8((BATCH, OH - 1, OW + 1), 47), \
+        u8((BATCH, 3, OH - 1, OW + 1), 48)
+
+    def odd():
+        return merge_ycrcb_to_bgr_fused(y_odd, up_odd)
+
+    say(f"  merge_ycrcb_to_bgr_fused per-pixel kernel at "
+        f"[{BATCH},{OH - 1},{OW + 1}]: {median_ms(odd, 20):.4f} ms back to "
+        f"back, {graph_ms(odd, 20):.4f} ms from graph replays, "
+        f"{profile(odd)['device_ms_per_call']:.4f} ms profiler device time "
+        f"({gpu})")
     mpix = BATCH * OH * OW / 1e6
     dev_ms = median_ms(lambda: upscale_planar(x, weights, (OH, OW)), 10)
     say(f"  e2e device-resident upscale_planar: {dev_ms:.4f} ms, "
@@ -336,6 +388,7 @@ def main() -> int:
     phase_stream(extra)
     phase_single_8k(extra)
     phase_timings(extra, ms, plain_ms, bounds)
+    phase_train(extra)
 
     replaces = {
         "pre_upscale_fused": ("srcnn_cpp_tpu_torch/csrc/pre_pass.cu",
@@ -629,6 +682,210 @@ def phase_timings(e: Extra, ms: dict, plain_ms: dict, bounds: dict) -> None:
         f"{plain_ms['srcnn_y_f32_fused']:.4f} ms, bound "
         f"{bounds['srcnn_y_f32_fused'][0]:.4f} ms; K1 on the same plane "
         f"{k1:.4f} ms ({e.gpu})")
+
+
+def check_gradients(model, cpu_model, exact_model, first) -> None:
+    """The card's gradients of ``mse_loss`` before any step, which Adam's
+    normalisation would hide from the update check: per tensor within
+    GRAD_REL x max |g| of the CPU's, on the 4x32x32 batch of
+    ``tests/test_torch_train.py`` and on the first training batch; on the
+    latter each is also printed against a float64 run."""
+    from srcnn_cpp_tpu_torch.ops.srcnn import fp32_strict
+    from srcnn_cpp_tpu_torch.train import mse_loss
+
+    def grads(m, xb, tb) -> dict:
+        dev = next(m.parameters()).device
+        m.zero_grad(set_to_none=True)
+        with fp32_strict():
+            mse_loss(m, torch.from_numpy(np.ascontiguousarray(xb)).to(dev),
+                     torch.from_numpy(np.ascontiguousarray(tb)).to(dev)
+                     ).backward()
+        g = {k: p.grad.detach().cpu().double()
+             for k, p in m.named_parameters()}
+        m.zero_grad(set_to_none=True)
+        return g
+
+    rng = np.random.default_rng(0)
+    xs = rng.integers(0, 256, (4, 32, 32), dtype=np.uint8)
+    ts = np.clip(xs.astype(np.float32) * 1.02 - 2.0, 0, 255)
+    for what, (xb, tb) in (("4x32x32", (xs, ts)), ("first 64x33x33", first)):
+        card, cpu = grads(model, xb, tb), grads(cpu_model, xb, tb)
+        rel = {k: float((card[k] - cpu[k]).abs().max() / cpu[k].abs().max())
+               for k in cpu}
+        msg = f"  gradients on the {what} batch, card vs CPU, of max |g|: " \
+            + ", ".join(f"{k} {v:.2e}" for k, v in rel.items()) \
+            + f" (bar {GRAD_REL})"
+        if what != "4x32x32":
+            exact = grads(exact_model, xb, tb)
+            msg += "; vs a float64 run, card/CPU: " + ", ".join(
+                f"{k} {float((card[k] - g).abs().max() / g.abs().max()):.2e}/"
+                f"{float((cpu[k] - g).abs().max() / g.abs().max()):.2e}"
+                for k, g in exact.items())
+        say(msg)
+        if max(rel.values()) > GRAD_REL:
+            raise AssertionError(f"the card's gradients on the {what} batch "
+                                 f"differ from the CPU's: {rel}")
+
+
+def phase_train(e: Extra) -> None:
+    import itertools
+    import tempfile
+
+    from srcnn_cpp_tpu_torch.kernel_ab import profile
+    from srcnn_cpp_tpu_torch.models import SRCNN
+    from srcnn_cpp_tpu_torch.pipeline import upscale_bgr_batch
+    from srcnn_cpp_tpu_torch.train import (dataset_from_dir, fit,
+                                           iterate_minibatches,
+                                           make_train_step)
+    from srcnn_cpp_tpu_torch.weights import load_weights
+    from srcnn_cpp_tpu_torch.weights.checkpoint import (load_checkpoint,
+                                                        save_checkpoint)
+
+    data = ROOT / "tests/data/eval"
+    say(f"phase 13: training on the card: fit() on tests/data/eval x2, "
+        f"batch 64, Adam 1e-4, {TRAIN_STEPS} steps from the checkpoint")
+    t0 = time.perf_counter()
+    x, t = dataset_from_dir(data, scale=2.0)
+    say(f"  dataset_from_dir: {len(x)} patches of 33x33 in "
+        f"{time.perf_counter() - t0:.1f} s (host)")
+    batches = list(itertools.islice(iterate_minibatches(x, t, 64, seed=0),
+                                    3))
+
+    def trainer(device, dtype=torch.float32):
+        model = SRCNN.from_weights(device=device).to(dtype)
+        opt = torch.optim.Adam(model.parameters(), lr=1e-4, eps=1e-8)
+        return model, opt, make_train_step(model, opt)
+
+    # the first 3 steps on the CPU and on the card, on the same batches, and
+    # on the CPU in float64: the yardstick of both float32 runs
+    cpu_model, _, cpu_step = trainer("cpu")
+    exact_model, _, exact_step = trainer("cpu", torch.float64)
+    model, opt, step = trainer("cuda")
+    check_gradients(model, cpu_model, exact_model, batches[0])
+    cpu_losses = [cpu_step(xb, tb) for xb, tb in batches]
+    for xb, tb in batches:
+        exact_step(xb, tb)
+    # the step switches TF32 off itself: turn it on (PyTorch's default for
+    # cuDNN) around the card's steps and read the switches in the forward
+    # and in the backward (conv1's weight gradient)
+    seen = []
+
+    def record(*_):
+        seen.append((torch.backends.cudnn.allow_tf32,
+                     torch.backends.cuda.matmul.allow_tf32,
+                     not torch.backends.cudnn.enabled))
+
+    hooks = [model.register_forward_hook(record),
+             model.conv1_w.register_hook(record)]
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        losses = [step(xb, tb) for xb, tb in batches]
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        for h in hooks:
+            h.remove()
+    if len(seen) != 6 or any(any(f) for f in seen):
+        raise AssertionError(f"TF32 on or cuDNN off inside the step: {seen}")
+    say(f"  TF32 off and cuDNN on inside all {len(seen) // 2} steps "
+        "(forward and backward) with PyTorch's TF32 default on outside")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, cpu_losses))
+    say(f"  first 3 losses: card {losses}, CPU {cpu_losses}; max relative "
+        f"difference {rel:.2e} (bar {TRAIN_RTOL})")
+    if not np.isfinite(losses).all() or rel > TRAIN_RTOL:
+        raise AssertionError("the card's first losses differ from the CPU's")
+    # the updates: where a gradient element cancels over the batch's 69,696
+    # positions its float32 sum keeps few digits on any device, and Adam
+    # hands that on; so the card's updates are held to the float64 run no
+    # further than the CPU's float32 updates are, plus UPDATE_REL of the
+    # largest update
+    ref, raw, err_cpu, err_card = load_weights(), 0.0, 0.0, 0.0
+    for (k, pg), pc, pe in zip(model.named_parameters(),
+                               cpu_model.parameters(),
+                               exact_model.parameters()):
+        w_cpu, w_card = pc.detach().double(), pg.detach().cpu().double()
+        w_exact = pe.detach()
+        largest = (w_exact - getattr(ref, k)).abs().max().clamp_min(1e-30)
+        raw = max(raw, float((w_card - w_cpu).abs().max() / largest))
+        err_cpu = max(err_cpu, float((w_cpu - w_exact).abs().max() / largest))
+        err_card = max(err_card,
+                       float((w_card - w_exact).abs().max() / largest))
+    say(f"  weights after 3 steps, of the largest update: card vs CPU "
+        f"{raw:.2e}; vs the float64 run: card {err_card:.2e}, CPU "
+        f"{err_cpu:.2e} (bar: the CPU's + {UPDATE_REL})")
+    if err_card > err_cpu + UPDATE_REL:
+        raise AssertionError("the card's updates differ from the CPU's")
+
+    # the step's time: host clock around steps that end in the loss's sync
+    more = list(itertools.islice(iterate_minibatches(x, t, 64, seed=1), 40))
+    for xb, tb in more[:10]:
+        step(xb, tb)
+    times = []
+    for xb, tb in more[10:]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(xb, tb)
+        times.append((time.perf_counter() - t0) * 1e3)
+    step_ms = statistics.median(times)
+    # forward + backward: 3x the forward's 8,032 MACs per output pixel
+    npx = 64 * 33 * 33
+    b_ms, b_by = bound(2 * npx, 2.0 * 3 * (81 * 64 + 64 * 32 + 32 * 25) * npx)
+    say(f"  train step (batch 64 x 33x33, cuDNN fp32, Adam): median "
+        f"{step_ms:.4f} ms over {len(times)} steps (min {min(times):.4f}), "
+        f"{64 / (step_ms / 1e3):.0f} patches/s; bound {b_ms:.4f} ms "
+        f"({b_by}) ({e.gpu})")
+    xb, tb = more[0]
+    prof = profile(lambda: step(xb, tb), iters=10)
+    top = sorted(prof["kernels_ms_per_call"].items(), key=lambda kv: -kv[1])
+    say(f"  profile of 10 steps: device {prof['device_ms_per_call']:.4f} ms "
+        f"of a {prof['span_ms_per_call']:.4f} ms span per step (busy "
+        f"{prof['busy_share']:.3f}), {prof['activities_per_call']:.0f} device "
+        f"activities per step; most time: " + "; ".join(
+            f"{k[:48]} {v:.4f} ms" for k, v in top[:4]))
+
+    # the user's entry point: fit() on the card
+    t0 = time.perf_counter()
+    trained, fit_losses = fit(data, scale=2.0, steps=TRAIN_STEPS, batch=64,
+                              lr=1e-4, verbose=False, device="cuda")
+    secs = time.perf_counter() - t0
+    say(f"  fit: {TRAIN_STEPS} steps in {secs:.2f} s with its dataset; mse "
+        f"{fit_losses[0]:.3f} -> {fit_losses[-1]:.3f} (min "
+        f"{min(fit_losses):.3f})")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(fit_losses, cpu_losses))
+    if not np.isfinite(fit_losses).all() or rel > TRAIN_RTOL:
+        raise AssertionError(f"fit's losses: not finite, or its first 3 "
+                             f"differ from the CPU's by {rel}")
+    if trained.device.type != "cuda":
+        raise AssertionError(f"fit returned weights on {trained.device}")
+
+    # a checkpoint of the run, reloaded, serves through K2 -> K1 -> K3
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "run.pt"
+        save_checkpoint(path, model.weights(), opt.state_dict(),
+                        step=3 + len(more), losses=losses)
+        ck = load_checkpoint(path, device="cuda")
+    for k, v in model.weights().as_dict().items():
+        if not torch.equal(getattr(ck["weights"], k), v):
+            raise AssertionError(f"checkpoint {k} differs after reloading")
+    # the optimizer's state loads back into an optimizer on the card
+    torch.optim.Adam(SRCNN.from_weights(ck["weights"]).parameters(), lr=1e-4,
+                     eps=1e-8).load_state_dict(ck["optimizer"])
+    frames = e.rng.integers(0, 256, (2, 270, 480, 3), dtype=np.uint8)
+    out, _ = e.drive("upscale_bgr_batch with the reloaded trained weights",
+                     lambda: upscale_bgr_batch(frames, 2.0, ck["weights"],
+                                               "cuda"),
+                     ("pre_upscale_fused", "srcnn_y_fused",
+                      "merge_ycrcb_to_bgr_fused"))
+    cpu_out = upscale_bgr_batch(frames, 2.0, ck["weights"].to("cpu"), "cpu")
+    d = np.abs(out.astype(np.int32) - cpu_out.astype(np.int32))
+    pre = upscale_bgr_batch(frames, 2.0, e.weights, "cuda")
+    say(f"  vs the CPU pipeline with the same weights: max {d.max()} LSB, "
+        f"(diff>1) {(d > 1).mean():.2e}; values that differ from the "
+        f"pretrained weights' output {(out != pre).mean():.2e}")
+    if out.shape != (2, 540, 960, 3) or d.max() > 2 or \
+            (d > 1).mean() >= E2E_FRAC:
+        raise AssertionError("serving the trained weights failed")
 
 
 if __name__ == "__main__":

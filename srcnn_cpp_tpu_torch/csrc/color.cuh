@@ -19,15 +19,27 @@ __device__ __forceinline__ uint8_t clamp_u8(int v) {
   return (uint8_t)min(max(v, 0), 255);
 }
 
+struct Bgr {
+  uint8_t b, g, r;
+};
+
+// y, cr, cb in [0, 255] -> the pixel's three BGR bytes.
+__device__ __forceinline__ Bgr ycrcb_to_bgr(int y, int cr, int cb) {
+  cr -= 128;
+  cb -= 128;
+  return {clamp_u8(y + ((cb * CB2B + HALF) >> SHIFT)),
+          clamp_u8(y + ((cb * CB2G + cr * CR2G + HALF) >> SHIFT)),
+          clamp_u8(y + ((cr * CR2R + HALF) >> SHIFT))};
+}
+
 // y, cr, cb in [0, 255]; writes the three BGR planes at o, o + plane,
 // o + 2 * plane.
 __device__ __forceinline__ void store_bgr(int y, int cr, int cb, uint8_t* o,
                                           long long plane) {
-  cr -= 128;
-  cb -= 128;
-  o[0] = clamp_u8(y + ((cb * CB2B + HALF) >> SHIFT));
-  o[plane] = clamp_u8(y + ((cb * CB2G + cr * CR2G + HALF) >> SHIFT));
-  o[2 * plane] = clamp_u8(y + ((cr * CR2R + HALF) >> SHIFT));
+  const Bgr c = ycrcb_to_bgr(y, cr, cb);
+  o[0] = c.b;
+  o[plane] = c.g;
+  o[2 * plane] = c.r;
 }
 
 }  // namespace srcnn_color

@@ -7,14 +7,16 @@ Loads the other checkout's ``srcnn_cpp_tpu_torch`` under another module
 name beside this one, builds both kernel libraries, and on the x2 main
 geometry (4 seeded 540x960 BGR frames -> 4 x 1080x1920) times, with CUDA
 events, the conv K1 (``srcnn_y_fused``), the pre-pass K2
-(``pre_upscale_fused``) and the device-resident pipeline
-(``upscale_planar``) of both, in turns (parent, change, change, parent) for
-``--rounds`` rounds.  Before timing it checks that both give the same K2
-output and K1 outputs within 1 LSB of each other, and it profiles 20 calls
-of each pipeline (``torch.profiler``: device time by kernel, busy share of
-the span).  Prints one line per round and a JSON summary (medians over the
-rounds, the profiles, the card's name and power limit), also written to
-``--out``.  Needs a CUDA card.
+(``pre_upscale_fused``), the post-pass K3 (``merge_ycrcb_to_bgr_fused``)
+and the device-resident pipeline (``upscale_planar``) of both, and K3 on
+4 seeded [1079,1921] planes (H*W % 16 != 0), in turns (parent, change,
+change, parent) for ``--rounds`` rounds; K2 and both K3 cases also from
+CUDA graph replays.  Before timing it checks that both give the same K2
+and K3 outputs and K1 outputs within 1 LSB of each other, and it profiles
+20 calls of each pipeline and of the odd-plane K3 (``torch.profiler``:
+device time by kernel, busy share of the span).  Prints one line per round
+and a JSON summary (medians over the rounds, the profiles, the card's name
+and power limit), also written to ``--out``.  Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -69,9 +71,39 @@ def _median_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
+def graph_ms(fn, reps: int, inner: int = 20) -> float:
+    """Median over ``reps`` CUDA-event timings of one replay of a CUDA graph
+    that holds ``inner`` calls of ``fn``, divided by ``inner``: the card's
+    time for a call without the host's launch overhead between calls, which
+    exceeds a kernel of a few tens of microseconds."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):      # warm-up off the capture, as required
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(inner):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        graph.replay()
+        t1.record()
+        torch.cuda.synchronize()
+        times.append(t0.elapsed_time(t1) / inner)
+    return statistics.median(times)
+
+
 def profile(fn, iters: int = 20) -> dict:
     """Device time by kernel over ``iters`` back-to-back calls of ``fn``
-    (``torch.profiler``), and the busy share of their CUDA-event span."""
+    (``torch.profiler``), the busy share of their CUDA-event span and the
+    device activities (kernels and copies) per call."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
@@ -87,16 +119,18 @@ def profile(fn, iters: int = 20) -> dict:
         t1.record()
         torch.cuda.synchronize()
     span = t0.elapsed_time(t1)
-    kernels = {}
+    kernels, activities = {}, 0
     for ev in prof.key_averages():
         dev = getattr(ev, "self_device_time_total", None)
         if dev is None:
             dev = getattr(ev, "self_cuda_time_total", 0)
         if dev > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
             kernels[ev.key[:80]] = dev / 1e3 / iters   # ms per call
+            activities += ev.count
     busy = sum(kernels.values())
     return {"span_ms_per_call": span / iters, "device_ms_per_call": busy,
             "busy_share": busy * iters / span if span else None,
+            "activities_per_call": activities / iters,
             "kernels_ms_per_call": kernels}
 
 
@@ -127,7 +161,7 @@ def main(argv=None) -> int:
     for tag, name in (("parent", _ALIAS), ("change", "srcnn_cpp_tpu_torch")):
         m = {k: importlib.import_module(f"{name}.{k}") for k in
              ("runtime", "pipeline", "weights", "ops.cuda_srcnn",
-              "ops.cuda_resize")}
+              "ops.cuda_resize", "ops.cuda_merge")}
         path, secs, _ = m["runtime"].build()
         m["runtime"].library()
         print(f"{tag}: built {path} in {secs:.1f} s", flush=True)
@@ -137,22 +171,41 @@ def main(argv=None) -> int:
     x = torch.from_numpy(rng.integers(0, 256, (4, 3, 540, 960),
                                       dtype=np.uint8)).cuda()
     hw = (1080, 1920)
+    # K3 on planes with H*W % 16 != 0 (odd sizes from the CLI and the eval
+    # harness), beside the main geometry
+    odd = (1079, 1921)
+    y_odd = torch.from_numpy(rng.integers(0, 256, (4, *odd),
+                                          dtype=np.uint8)).cuda()
+    up_odd = torch.from_numpy(rng.integers(0, 256, (4, 3, *odd),
+                                           dtype=np.uint8)).cuda()
+    k3_odd = f"merge_ycrcb_to_bgr_fused [4,{odd[0]},{odd[1]}]"
     fns = {}
     ups = {}
     for tag, m in sides.items():
         w = m["weights"].load_weights(device="cuda")
         pre = m["ops.cuda_resize"].pre_upscale_fused
         conv = m["ops.cuda_srcnn"].srcnn_y_fused
+        merge = m["ops.cuda_merge"].merge_ycrcb_to_bgr_fused
         ups[tag] = pre(x, hw)
         up = ups[tag]
+        y_sr = conv(up[:, 0], w)
         fns[tag] = {
             "srcnn_y_fused": (lambda c=conv, u=up, w=w: c(u[:, 0], w)),
             "pre_upscale_fused": (lambda p=pre: p(x, hw)),
+            "merge_ycrcb_to_bgr_fused": (lambda f=merge, y=y_sr, u=up:
+                                         f(y, u)),
+            k3_odd: (lambda f=merge: f(y_odd, up_odd)),
             "upscale_planar": (lambda m=m, w=w:
                                m["pipeline"].upscale_planar(x, w, hw)),
         }
     if not torch.equal(ups["parent"], ups["change"]):
         raise AssertionError("K2 outputs differ between the two trees")
+    for name in ("merge_ycrcb_to_bgr_fused", k3_odd):
+        if not torch.equal(fns["parent"][name](), fns["change"][name]()):
+            raise AssertionError(f"{name}: outputs differ between the trees")
+    # K2 and K3 take less device time than their wrappers' host time: they
+    # are also timed from CUDA graph replays, in turns like the rest
+    graphed = ("pre_upscale_fused", "merge_ycrcb_to_bgr_fused", k3_odd)
     d = (fns["parent"]["srcnn_y_fused"]().int()
          - fns["change"]["srcnn_y_fused"]().int()).abs()
     print(f"K1 parent vs change: max {int(d.max())} LSB, differing "
@@ -160,28 +213,36 @@ def main(argv=None) -> int:
     if int(d.max()) > 1:
         raise AssertionError("K1 outputs differ by more than 1 LSB")
 
+    timed = [(name, "", _median_ms) for name in fns["change"]]
+    timed += [(name, " (graph)", graph_ms) for name in graphed]
     rounds = []
     for r in range(args.rounds):
         row = {}
-        for name in fns["change"]:
-            p = [_median_ms(fns["parent"][name], args.reps)]
-            c = [_median_ms(fns["change"][name], args.reps) for _ in range(2)]
-            p.append(_median_ms(fns["parent"][name], args.reps))
-            row[name] = {"parent": p, "change": c}
-            print(f"round {r}: {name}: parent {p[0]:.4f}/{p[1]:.4f} ms, "
-                  f"change {c[0]:.4f}/{c[1]:.4f} ms ({card})", flush=True)
+        for name, suffix, timer in timed:
+            p = [timer(fns["parent"][name], args.reps)]
+            c = [timer(fns["change"][name], args.reps) for _ in range(2)]
+            p.append(timer(fns["parent"][name], args.reps))
+            row[name + suffix] = {"parent": p, "change": c}
+            print(f"round {r}: {name}{suffix}: parent {p[0]:.4f}/{p[1]:.4f} "
+                  f"ms, change {c[0]:.4f}/{c[1]:.4f} ms ({card})", flush=True)
         rounds.append(row)
     summary = {"card": card, "geometry": "4x3x540x960 -> 4x3x1080x1920",
                "profile": {tag: profile(fns[tag]["upscale_planar"])
                            for tag in ("parent", "change")},
+               "profile_k3_odd": {tag: profile(fns[tag][k3_odd])
+                                  for tag in ("parent", "change")},
                "rounds": rounds, "median_ms": {
                    name: {side: statistics.median(
                        v for row in rounds for v in row[name][side])
                        for side in ("parent", "change")}
-                   for name in fns["change"]}}
+                   for name in rounds[0]}}
     args.out.parent.mkdir(parents=True, exist_ok=True)
     args.out.write_text(json.dumps(summary, indent=1))
     for tag in ("parent", "change"):
+        pr = summary["profile_k3_odd"][tag]
+        print(f"profile {tag}, {k3_odd} alone: device "
+              f"{pr['device_ms_per_call']:.4f} ms/call of a "
+              f"{pr['span_ms_per_call']:.4f} ms span", flush=True)
         pr = summary["profile"][tag]
         print(f"profile {tag}: span {pr['span_ms_per_call']:.4f} ms/call, "
               f"device {pr['device_ms_per_call']:.4f} ms/call, busy "

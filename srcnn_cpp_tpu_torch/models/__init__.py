@@ -1,5 +1,5 @@
-"""The SRCNN model (see :mod:`.srcnn`)."""
+"""The SRCNN models (see :mod:`.srcnn`)."""
 
-from .srcnn import SRCNN955
+from .srcnn import SRCNN, SRCNN955
 
-__all__ = ["SRCNN955"]
+__all__ = ["SRCNN", "SRCNN955"]

@@ -29,13 +29,13 @@ plan (:func:`conv_tile_plan`) that the wrappers hand to the launcher.
 
 from __future__ import annotations
 
-import functools
 import weakref
 
 import torch
 
 from .. import runtime
 from .color import ycrcb2bgr_u8_planar
+from ..weights.loader import CANONICAL, family_shapes
 from .srcnn import srcnn_y, srcnn_y_f32
 
 __all__ = ["srcnn_y_fused", "srcnn_y_plain", "srcnn_merge_fused",
@@ -164,14 +164,9 @@ def conv_tile_origin(tile: int, h: int, w: int) -> tuple[int, int, int]:
     return rest // ty_n, (rest % ty_n) * th, (tile % tx_n) * tw
 
 
-@functools.lru_cache(maxsize=None)
-def _num_sms(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def _plan_args(b: int, h: int, w: int) -> tuple:
     """The plan's launcher arguments on the current CUDA device."""
-    plan = conv_tile_plan(b, h, w, _num_sms(torch.cuda.current_device()))
+    plan = conv_tile_plan(b, h, w, runtime.num_sms())
     return (*plan["tile"], plan["grid"], plan["smem_bytes"])
 
 
@@ -205,7 +200,12 @@ def srcnn_y_f32_plain(y_u8: torch.Tensor, weights) -> torch.Tensor:
 srcnn_y_f32_plain.calls = 0
 
 
+_SHAPES = family_shapes(*CANONICAL)
+
+
 def _check_device(x: torch.Tensor, weights) -> None:
+    if any(tuple(getattr(weights, k).shape) != v for k, v in _SHAPES.items()):
+        raise ValueError("the fused kernels take SRCNN 9-5-5 64/32 weights")
     if weights.conv1_w.device != x.device:
         raise ValueError(f"weights on {weights.conv1_w.device}, "
                          f"input on {x.device}")

@@ -40,7 +40,7 @@ _SIGNATURES = {
     "srcnn_conv_f32": (_P, _LL, _P, _P, *(_I,) * 7, _P),
     "srcnn_conv_merge_u8": (_P, _P, _P, *(_I,) * 7, _P),
     "pre_pass_u8": (*(_P,) * 8, *(_I,) * 10, _P),
-    "merge_ycrcb_bgr_u8": (_P, _P, _P, _I, _I, _I, _P),
+    "merge_ycrcb_bgr_u8": (_P, _P, _P, *(_I,) * 6, _LL, _P),
 }
 
 
@@ -146,3 +146,18 @@ def current_stream() -> int:
     import torch
 
     return torch.cuda.current_stream().cuda_stream
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    import torch
+
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def num_sms() -> int:
+    """The number of SMs of the current CUDA device (the launch plans size
+    their grids by it)."""
+    import torch
+
+    return _sm_count(torch.cuda.current_device())

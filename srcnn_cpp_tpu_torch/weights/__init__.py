@@ -1,5 +1,8 @@
-"""Pretrained SRCNN 9-5-5 weights as torch tensors (see :mod:`.loader`)."""
+"""SRCNN weights as torch tensors: loading (:mod:`.loader`) and
+checkpoints (:mod:`.checkpoint`)."""
 
-from .loader import SRCNNWeights, from_jax_params, load_weights, weights_npz
+from .loader import (CANONICAL, SRCNNWeights, from_jax_params, load_weights,
+                     weights_npz)
 
-__all__ = ["SRCNNWeights", "from_jax_params", "load_weights", "weights_npz"]
+__all__ = ["CANONICAL", "SRCNNWeights", "from_jax_params", "load_weights",
+           "weights_npz"]

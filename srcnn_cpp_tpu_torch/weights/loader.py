@@ -1,16 +1,14 @@
-"""Checkpoint loading for the SRCNN 9-5-5 model, as torch tensors.
+"""Checkpoint loading for the SRCNN model family, as torch tensors.
 
-The checkpoint is the JAX package's ``srcnn_cpp_tpu/weights/srcnn955.npz``
-(the reference's compiled-in src/convdata.h as an artifact).  It is read by
-path with NumPy: :func:`importlib.util.find_spec` locates the package
-directory without executing the package, whose ``weights`` module imports
-``jax`` when it is installed.
+The pretrained checkpoint is ``srcnn955.npz`` beside this file: the
+reference's compiled-in src/convdata.h as an artifact, a copy of the JAX
+package's ``srcnn_cpp_tpu/weights/srcnn955.npz`` (``tests/
+test_torch_models_ckpt.py`` holds the two equal).  It is read with NumPy.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import importlib.util
 from pathlib import Path
 from typing import Any, Mapping
 
@@ -18,31 +16,53 @@ import numpy as np
 import torch
 
 _KEYS = ("conv1_w", "conv1_b", "conv2_w", "conv2_b", "conv3_w", "conv3_b")
-_SHAPES = {"conv1_w": (64, 1, 9, 9), "conv1_b": (64,),
-           "conv2_w": (32, 64, 1, 1), "conv2_b": (32,),
-           "conv3_w": (1, 32, 5, 5), "conv3_b": (1,)}
+#: the canonical configuration ``(n1, n2, f1, f2, f3)`` of the checkpoint
+#: and of the fused kernels (reference src/convdata.h:4-16)
+CANONICAL = (64, 32, 9, 1, 5)
 
 
 def weights_npz() -> Path:
-    """Path of the pretrained checkpoint shipped with the JAX package."""
-    spec = importlib.util.find_spec("srcnn_cpp_tpu")
-    if spec is None or not spec.submodule_search_locations:
-        raise FileNotFoundError(
-            "package srcnn_cpp_tpu (which ships weights/srcnn955.npz) "
-            "is not installed")
-    return Path(next(iter(spec.submodule_search_locations))) / \
-        "weights" / "srcnn955.npz"
+    """Path of the pretrained SRCNN 9-5-5 checkpoint shipped with the port."""
+    return Path(__file__).with_name("srcnn955.npz")
+
+
+def family_shapes(n1: int, n2: int, f1: int, f2: int, f3: int
+                  ) -> dict[str, tuple[int, ...]]:
+    """The parameter shapes of SRCNN ``f1-f2-f3`` with ``n1``/``n2`` maps."""
+    return {"conv1_w": (n1, 1, f1, f1), "conv1_b": (n1,),
+            "conv2_w": (n2, n1, f2, f2), "conv2_b": (n2,),
+            "conv3_w": (1, n2, f3, f3), "conv3_b": (1,)}
+
+
+def infer_config(shapes: Mapping[str, tuple[int, ...]]
+                 ) -> tuple[int, int, int, int, int]:
+    """``(n1, n2, f1, f2, f3)`` of a set of parameter shapes; raises
+    ValueError when they are no member of the family."""
+    try:
+        n1, _, f1, _ = shapes["conv1_w"]
+        n2, _, f2, _ = shapes["conv2_w"]
+        f3 = shapes["conv3_w"][2]
+    except (KeyError, ValueError, IndexError) as e:
+        raise ValueError(f"not SRCNN parameter shapes: {dict(shapes)}") from e
+    want = family_shapes(n1, n2, f1, f2, f3)
+    for k in _KEYS:
+        if tuple(shapes[k]) != want[k]:
+            raise ValueError(f"{k}: shape {tuple(shapes[k])}, expected "
+                             f"{want[k]} for n1={n1} n2={n2} "
+                             f"{f1}-{f2}-{f3}")
+    return n1, n2, f1, f2, f3
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class SRCNNWeights:
-    """SRCNN 9-5-5 parameters in OIHW filter layout ``[out_c, in_c, kh, kw]``."""
+    """SRCNN parameters in OIHW filter layout ``[out_c, in_c, kh, kw]``;
+    shapes as in :func:`family_shapes` (the checkpoint's: 9-5-5, 64/32)."""
 
-    conv1_w: torch.Tensor  # (64, 1, 9, 9)
-    conv1_b: torch.Tensor  # (64,)
-    conv2_w: torch.Tensor  # (32, 64, 1, 1)
-    conv2_b: torch.Tensor  # (32,)
-    conv3_w: torch.Tensor  # (1, 32, 5, 5)
+    conv1_w: torch.Tensor  # (n1, 1, f1, f1)
+    conv1_b: torch.Tensor  # (n1,)
+    conv2_w: torch.Tensor  # (n2, n1, f2, f2)
+    conv2_b: torch.Tensor  # (n2,)
+    conv3_w: torch.Tensor  # (1, n2, f3, f3)
     conv3_b: torch.Tensor  # (1,)
 
     def to(self, device) -> "SRCNNWeights":
@@ -55,25 +75,31 @@ class SRCNNWeights:
     def device(self) -> torch.device:
         return self.conv1_w.device
 
+    @property
+    def config(self) -> tuple[int, int, int, int, int]:
+        """``(n1, n2, f1, f2, f3)``."""
+        return infer_config({k: tuple(v.shape)
+                             for k, v in self.as_dict().items()})
+
 
 def from_jax_params(w: Any, device="cpu") -> SRCNNWeights:
-    """A JAX ``SRCNNWeights`` (or a mapping of arrays) -> the port's weights.
+    """A JAX ``SRCNNWeights`` (or a mapping of arrays) of any member of the
+    family -> the port's weights.
 
     Arrays are read with ``np.asarray``, so JAX arrays, NumPy arrays and
-    nested lists all work and no JAX import happens here.
+    nested lists all work and no JAX import happens here.  Shapes that match
+    no member of the family raise ValueError.
     """
     get = w.__getitem__ if isinstance(w, Mapping) else \
         (lambda k: getattr(w, k))
-    arrays = {}
-    for k in _KEYS:
-        a = np.asarray(get(k), dtype=np.float32)
-        if a.shape != _SHAPES[k]:
-            raise ValueError(f"{k}: shape {a.shape}, expected {_SHAPES[k]}")
-        arrays[k] = torch.from_numpy(a.copy()).to(device)
-    return SRCNNWeights(**arrays)
+    arrays = {k: np.asarray(get(k), dtype=np.float32) for k in _KEYS}
+    infer_config({k: a.shape for k, a in arrays.items()})
+    return SRCNNWeights(**{k: torch.from_numpy(a.copy()).to(device)
+                           for k, a in arrays.items()})
 
 
 def load_weights(path: Path | str | None = None, device="cpu") -> SRCNNWeights:
-    """Load the pretrained SRCNN 9-5-5 checkpoint as float32 tensors."""
+    """Load an npz checkpoint (the pretrained SRCNN 9-5-5 one when ``path``
+    is None) as float32 tensors."""
     with np.load(Path(path) if path is not None else weights_npz()) as z:
         return from_jax_params({k: z[k] for k in _KEYS}, device)

@@ -163,6 +163,55 @@ def test_merge_fused_clip_boundaries_match_jax():
         assert np.array_equal(got, np.asarray(jm(y, up))), (cr, cb)
 
 
+@pytest.mark.parametrize("b,h,w,offsets", [
+    (1, 1, 1, (0, 0, 0)), (3, 7, 13, (0, 0, 0)),       # odd planes
+    (2, 37, 131, (0, 0, 0)), (1, 33, 48, (0, 0, 0)),   # H*W % 16 != 0, == 0
+    (2, 64, 96, (0, 0, 0)), (2, 64, 96, (1, 0, 0)),    # misaligned Y'
+    (2, 64, 96, (0, 3, 0)), (2, 64, 96, (16, 48, 0)),  # whole 16-byte words
+    (2, 64, 96, (5, 5, 5)), (1, 2, 8, (9, 9, 9)),      # a shared head
+    (3, 16, 40, (0, 0, 8))])
+def test_merge_plan_covers_every_byte_once(b, h, w, offsets):
+    # K3's plan, decoded as merge.cu's two kernels decode it, writes each
+    # byte of [B,3,H,W] exactly once, with 16-byte accesses exactly where
+    # every frame's six planes share their alignment, and all of them aligned
+    from srcnn_cpp_tpu_torch.ops.cuda_merge import MERGE_BLOCK, merge_plan
+
+    plane = h * w
+    bases = [(1 << 20) * (i + 1) + off for i, off in enumerate(offsets)]
+    plan = merge_plan(b, h, w, num_sms=132, addrs=tuple(bases))
+    shared = plane % 16 == 0 and len({p % 16 for p in bases}) == 1
+    assert plan["vec"] == (16 if shared else 1)
+    assert plan["units"] == b * plan["per_frame"]
+    count = np.zeros((b, 3, plane), dtype=np.int64)
+    if not shared:
+        # merge_pixel_kernel: block (x, b), thread t -> pixel 256 x + t
+        assert plan["per_frame"] == plane and plan["head"] == 0
+        assert plan["grid"] * MERGE_BLOCK >= plane > (plan["grid"] - 1) * 256
+        for x in range(plan["grid"]):
+            px = [p for p in range(256 * x, 256 * x + 256) if p < plane]
+            count[:, :, px] += 1
+        assert (count == 1).all()
+        return
+    # merge_vec_kernel: unit k of frame b, k = 0 the head, k >= 1 16 pixels
+    assert 1 <= plan["grid"] <= 132 * 4
+    assert plan["grid"] * MERGE_BLOCK >= min(plan["units"], 132 * 4 * 256)
+    head = plan["head"]
+    for bb in range(b):
+        o = bases[2] + 3 * bb * plane
+        planes = (bases[0] + bb * plane, bases[1] + (3 * bb + 1) * plane,
+                  bases[1] + (3 * bb + 2) * plane, o, o + plane, o + 2 * plane)
+        vec_units = 0
+        for k in range(plan["per_frame"]):
+            s = 0 if k == 0 else head + 16 * (k - 1)
+            e = head if k == 0 else min(s + 16, plane)
+            if e - s == 16:
+                vec_units += 1
+                assert all((p + s) % 16 == 0 for p in planes)
+            count[bb, :, s:max(s, e)] += 1
+        assert vec_units == (plane - head) // 16, (bb, vec_units)
+    assert (count == 1).all()
+
+
 # --- on the card: each kernel against its plain version ----------------------
 
 @pytest.fixture
@@ -223,6 +272,33 @@ def test_cuda_merge_matches_plain(cuda, b, h, w):
 
     y, up = _dev(_u8((b, h, w), h), cuda), _dev(_u8((b, 3, h, w), w), cuda)
     got = merge_ycrcb_to_bgr_fused(y, up)
+    torch.cuda.synchronize()
+    assert torch.equal(got, merge_plain(y, up))
+
+
+def _at_offset(t, offset):
+    """Contiguous copy of u8 ``t`` starting ``offset`` bytes into a buffer."""
+    buf = torch.empty(t.numel() + offset, dtype=torch.uint8, device=t.device)
+    view = buf[offset:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w,y_off,up_off", [
+    (1, 1, 1, 0, 0), (3, 7, 13, 0, 0), (2, 1079, 1921, 0, 0),   # ragged
+    (2, 64, 96, 1, 0), (2, 64, 96, 0, 3), (2, 64, 96, 1, 1),    # misaligned
+    (2, 64, 96, 16, 48), (2, 7, 13, 5, 9)])
+def test_cuda_merge_ragged_and_misaligned(cuda, b, h, w, y_off, up_off):
+    # K3's per-pixel heads, tails and frames beside its 16-byte units
+    from srcnn_cpp_tpu_torch.ops.cuda_merge import (merge_plain,
+                                                    merge_ycrcb_to_bgr_fused)
+
+    y = _dev(_u8((b, h, w), h + y_off), cuda)
+    up = _dev(_u8((b, 3, h, w), w + up_off), cuda)
+    ym, upm = _at_offset(y, y_off), _at_offset(up, up_off)
+    assert ym.data_ptr() % 16 == y_off % 16 and ym.is_contiguous()
+    got = merge_ycrcb_to_bgr_fused(ym, upm)
     torch.cuda.synchronize()
     assert torch.equal(got, merge_plain(y, up))
 

@@ -18,9 +18,13 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
         "import srcnn_cpp_tpu_torch, srcnn_cpp_tpu_torch.cli\n"
         "import srcnn_cpp_tpu_torch.pipeline, srcnn_cpp_tpu_torch.models\n"
         "import srcnn_cpp_tpu_torch.evaluate, srcnn_cpp_tpu_torch.stream\n"
-        "import srcnn_cpp_tpu_torch.configs\n"
+        "import srcnn_cpp_tpu_torch.configs, srcnn_cpp_tpu_torch.train\n"
+        "import srcnn_cpp_tpu_torch.train.trainer\n"
+        "import srcnn_cpp_tpu_torch.weights.checkpoint\n"
         "from srcnn_cpp_tpu_torch import load_weights\n"
+        "from srcnn_cpp_tpu_torch.weights import weights_npz\n"
         "load_weights()\n"
+        "assert 'srcnn_cpp_tpu_torch' in weights_npz().parts, weights_npz()\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'jaxlib', 'srcnn_cpp_tpu')]\n"
         "print(bad)\n"
