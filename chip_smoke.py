@@ -26,7 +26,17 @@ with the launch counts set to 0 just before and read just after:
   9-5-5 from the checkpoint, batch 64 of 33x33 patches, Adam 1e-4, 50
   steps), its gradients and first steps against the port's CPU run and a
   float64 run, the step's time beside its bound, and the trained weights
-  through a checkpoint and back into the main path (K2 -> K1 -> K3).
+  through a checkpoint and back into the main path (K2 -> K1 -> K3);
+* phases 14-19, ``parallel/`` on meshes that name the one card several
+  times (every block's kernels run on the card, every seam is stitched):
+  K1 tiled bit-equal to K1 (14); windowed K2 and tiled K3 bit-equal to K2
+  and K3 at x2, x1.5, x1.25, x0.75 and x3 (15); ``single_8k(mesh=row 4)``
+  bit-equal to ``single_8k()``, with its times beside the unsharded run's
+  (16); the sharded train step against ``make_train_step`` (17); two
+  processes of ``parallel.distributed`` on the card over gloo, the stream
+  bit-exact and the trainer's losses equal to one process's (18; over
+  NCCL with one card per process where there are two cards); and
+  ``scaling_efficiency`` as one card's tiling overhead (19).
 
 Any failure raises and the exit code is non-zero.  The last line of
 standard output is a JSON object ``{"ok": true, "device": {...}}``; the
@@ -389,6 +399,12 @@ def main() -> int:
     phase_single_8k(extra)
     phase_timings(extra, ms, plain_ms, bounds)
     phase_train(extra)
+    phase_tiled_k1(extra)
+    phase_tiled_k2_k3(extra)
+    phase_single_8k_mesh(extra)
+    phase_sharded_train(extra)
+    phase_two_processes(extra)
+    phase_scaling(extra)
 
     replaces = {
         "pre_upscale_fused": ("srcnn_cpp_tpu_torch/csrc/pre_pass.cu",
@@ -886,6 +902,297 @@ def phase_train(e: Extra) -> None:
     if out.shape != (2, 540, 960, 3) or d.max() > 2 or \
             (d > 1).mean() >= E2E_FRAC:
         raise AssertionError("serving the trained weights failed")
+
+
+def mesh_of(n: int, **axes):
+    """A mesh over the card named ``n`` times."""
+    from srcnn_cpp_tpu_torch.parallel import make_mesh
+
+    return make_mesh(devices=["cuda:0"] * n, **axes)
+
+
+#: the meshes of phase 14, as (data, row, col)
+MESHES = ((1, 4, 1), (2, 2, 1), (1, 2, 2))
+#: phase 16's frame (H, W) and phase 19's planes (B, H, W)
+FRAME_8K, SCALING_SHAPE = (2160, 3840), (4, 1080, 1920)
+
+
+def phase_tiled_k1(e: Extra) -> None:
+    from srcnn_cpp_tpu_torch.ops.cuda_srcnn import srcnn_y_fused
+    from srcnn_cpp_tpu_torch.parallel import upscale_y_tiled
+
+    say("phase 14: K1 tiled over (data, row, col) meshes of cuda:0 x 4 vs "
+        "K1 on the whole plane, bit-equal")
+    for y in (e.up[:, 0], border_batch()):
+        mono = srcnn_y_fused(y, e.weights)
+        for d, r, c in MESHES:
+            mesh = mesh_of(4, data=d, row=r, col=c)
+            tag = f"{list(y.shape)} on ({d},{r},{c})"
+            got, n = e.drive(f"upscale_y_tiled {tag}",
+                             lambda: upscale_y_tiled(y, e.weights, mesh),
+                             ("srcnn_y_fused",))
+            if n["srcnn_y_fused"] != 4:
+                raise AssertionError(f"{tag}: {n['srcnn_y_fused']} K1 "
+                                     "launches, not one per block")
+            assert_equal(got, mono, f"{tag} vs K1")
+
+
+def phase_tiled_k2_k3(e: Extra) -> None:
+    from srcnn_cpp_tpu_torch.ops.cuda_merge import merge_ycrcb_to_bgr_fused
+    from srcnn_cpp_tpu_torch.ops.cuda_resize import pre_upscale_fused
+    from srcnn_cpp_tpu_torch.ops.cuda_srcnn import srcnn_y_fused
+    from srcnn_cpp_tpu_torch.ops.resize import scaled_size
+    from srcnn_cpp_tpu_torch.parallel import (merge_ycrcb_to_bgr_fused_rows,
+                                              pre_upscale_fused_rows)
+
+    say("phase 15: windowed K2 and tiled K3 vs K2 and K3 on the whole frame, "
+        "bit-equal")
+    x3 = u8((2, 3, 540, 96), 90)
+    cases = [(e.x, scaled_size(IW, IH, s)[::-1], s)
+             for s in (2.0, 1.5, 1.25, 0.75)] + [(x3, (1620, 288), 3.0)]
+    for x, out_hw, s in cases:
+        up = pre_upscale_fused(x, out_hw)
+        y_sr = srcnn_y_fused(up[:, 0], e.weights)
+        bgr = merge_ycrcb_to_bgr_fused(y_sr, up)
+        for d, r, c in ((1, 3, 1), (2, 3, 1), (1, 3, 2)) + (
+                ((1, 4, 1),) if s == 2.0 else ()):
+            mesh = mesh_of(d * r * c, data=d, row=r, col=c)
+            tag = f"x{s:g} {list(x.shape)} -> {list(out_hw)} on ({d},{r},{c})"
+            got, n = e.drive(f"pre_upscale_fused_rows {tag}",
+                             lambda: pre_upscale_fused_rows(x, out_hw, mesh),
+                             ("pre_upscale_fused",))
+            assert_equal(got, up, f"K2 {tag}")
+            got, m = e.drive(f"merge_ycrcb_to_bgr_fused_rows {tag}",
+                             lambda: merge_ycrcb_to_bgr_fused_rows(y_sr, up,
+                                                                   mesh),
+                             ("merge_ycrcb_to_bgr_fused",))
+            assert_equal(got, bgr, f"K3 {tag}")
+            if n["pre_upscale_fused"] != mesh.size or \
+                    m["merge_ycrcb_to_bgr_fused"] != mesh.size:
+                raise AssertionError(f"{tag}: not one launch per block")
+
+
+def phase_single_8k_mesh(e: Extra) -> None:
+    from srcnn_cpp_tpu_torch.configs import single_8k
+    from srcnn_cpp_tpu_torch.kernel_ab import profile
+    from srcnn_cpp_tpu_torch.parallel.tiling import split_blocks, upscale_blocks
+    from srcnn_cpp_tpu_torch.pipeline import upscale_planar
+
+    (h, w), (oh, ow) = FRAME_8K, (2 * FRAME_8K[0], 2 * FRAME_8K[1])
+    say(f"phase 16: configs.single_8k(mesh=row 4 over cuda:0) {h}x{w} -> "
+        f"{oh}x{ow} vs single_8k(), bit-equal")
+    mesh = mesh_of(4, data=1, row=4)
+    frame = e.rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+    runs = {"unsharded": single_8k(e.weights), "row 4": single_8k(e.weights,
+                                                                   mesh=mesh)}
+    outs = {}
+    for name, run in runs.items():
+        outs[name], n = e.drive(f"single_8k {name}", lambda: run(frame),
+                                ("pre_upscale_fused", "srcnn_y_fused",
+                                 "merge_ycrcb_to_bgr_fused"))
+        want = 4 if name == "row 4" else 1
+        if any(n[k] != want for k in ("pre_upscale_fused", "srcnn_y_fused",
+                                      "merge_ycrcb_to_bgr_fused")):
+            raise AssertionError(f"single_8k {name}: launches {n}, not "
+                                 f"{want} of each of K2, K1, K3")
+    if not np.array_equal(outs["row 4"], outs["unsharded"]):
+        d = np.abs(outs["row 4"].astype(int) - outs["unsharded"].astype(int))
+        raise AssertionError(f"single_8k(mesh) differs: {(d > 0).sum()} "
+                             f"values, max {d.max()}")
+    say("  single_8k(mesh=row 4) vs single_8k(): bit-equal")
+    host = {}
+    for name, run in runs.items():
+        ts = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run(frame)
+            ts.append((time.perf_counter() - t0) * 1e3)
+        host[name] = statistics.median(ts)
+    x = torch.from_numpy(np.ascontiguousarray(
+        np.moveaxis(frame, -1, 0)))[None].cuda()
+    blocks = split_blocks(x, mesh)
+    dev = {"unsharded": median_ms(lambda: upscale_planar(
+        x, e.weights, (oh, ow)), 10),
+        "row 4": median_ms(lambda: upscale_blocks(
+            blocks, e.weights, (h, w), (oh, ow), mesh), 10)}
+    prof = {"unsharded": profile(lambda: upscale_planar(
+        x, e.weights, (oh, ow)), iters=5),
+        "row 4": profile(lambda: upscale_blocks(
+            blocks, e.weights, (h, w), (oh, ow), mesh), iters=5)}
+    for name in runs:
+        p = prof[name]
+        top = sorted(p["kernels_ms_per_call"].items(), key=lambda kv: -kv[1])
+        say(f"  single_8k {name}: host arrays in and out {host[name]:.1f} ms "
+            f"(median of 5), device span {dev[name]:.4f} ms (CUDA events, "
+            f"median of 10); profiler: {p['device_ms_per_call']:.4f} ms of "
+            f"device work in a {p['span_ms_per_call']:.4f} ms span (busy "
+            f"{p['busy_share']:.3f}), {p['activities_per_call']:.0f} device "
+            f"activities per call, most time: " + "; ".join(
+                f"{k[:40]} {v:.4f} ms" for k, v in top[:4]) + f" ({e.gpu})")
+    say(f"  tiling over 4 row blocks on one card: device span "
+        f"{dev['row 4'] / dev['unsharded'] - 1:+.2%}, host arrays "
+        f"{host['row 4'] / host['unsharded'] - 1:+.2%}")
+
+
+def phase_sharded_train(e: Extra) -> None:
+    import itertools
+
+    from srcnn_cpp_tpu_torch.models import SRCNN
+    from srcnn_cpp_tpu_torch.train import (dataset_from_dir,
+                                           iterate_minibatches,
+                                           make_sharded_train_step,
+                                           make_train_step, shard_batch)
+    from srcnn_cpp_tpu_torch.weights import load_weights
+
+    say("phase 17: make_sharded_train_step on (2,2,1) over cuda:0 vs "
+        "make_train_step, batch 64 of 32x32 patches of tests/data/eval")
+    x, t = dataset_from_dir(ROOT / "tests/data/eval", scale=2.0)
+    batches = [(xb[:, :32, :32], tb[:, :32, :32]) for xb, tb in
+               itertools.islice(iterate_minibatches(x, t, 64, seed=2), 3)]
+    mesh = mesh_of(4, data=2, row=2)
+
+    card_dev = e.weights.device
+
+    def run(sharded: bool, device=card_dev, dtype=torch.float32, lr=1e-4):
+        model = SRCNN.from_weights(device=device).to(dtype)
+        opt = (torch.optim.Adam(model.parameters(), lr=lr, eps=1e-8) if lr
+               else torch.optim.SGD(model.parameters(), lr=0.0))
+        step = make_sharded_train_step(mesh, model, opt) if sharded \
+            else make_train_step(model, opt)
+        return model, step
+
+    # gradients of the first batch (a step at learning rate 0 keeps them)
+    grads = {}
+    for sharded in (False, True):
+        model, step = run(sharded, lr=0.0)
+        xb, tb = batches[0]
+        step(shard_batch(mesh, xb) if sharded else xb,
+             shard_batch(mesh, tb) if sharded else tb)
+        grads[sharded] = {k: p.grad.detach().double()
+                          for k, p in model.named_parameters()}
+    rel = {k: float((grads[True][k] - g).abs().max() / g.abs().max())
+           for k, g in grads[False].items()}
+    say("  gradients, sharded vs unsharded, of max |g|: " + ", ".join(
+        f"{k} {v:.2e}" for k, v in rel.items()) + f" (bar {GRAD_REL})")
+    if max(rel.values()) > GRAD_REL:
+        raise AssertionError(f"sharded gradients differ: {rel}")
+    # three Adam steps each, beside a float64 run on the CPU
+    models, losses = {}, {}
+    for name, sharded, dev, dt in (("sharded", True, card_dev, torch.float32),
+                                   ("unsharded", False, card_dev,
+                                    torch.float32),
+                                   ("float64", False, "cpu", torch.float64)):
+        models[name], step = run(sharded, dev, dt)
+        losses[name] = [step(*(tuple(shard_batch(mesh, a) for a in b)
+                               if sharded else b)) for b in batches]
+    lrel = max(abs(a - b) / abs(b) for a, b in zip(losses["sharded"],
+                                                   losses["unsharded"]))
+    say(f"  losses: sharded {losses['sharded']}, unsharded "
+        f"{losses['unsharded']}; max relative difference {lrel:.2e} (bar "
+        f"{TRAIN_RTOL})")
+    if not np.isfinite(losses["sharded"]).all() or lrel > TRAIN_RTOL:
+        raise AssertionError("the sharded step's losses differ")
+    ref, err = load_weights(), {}
+    for name in ("sharded", "unsharded"):
+        err[name] = 0.0
+        for (k, p), pe in zip(models[name].named_parameters(),
+                              models["float64"].parameters()):
+            largest = (pe.detach() - getattr(ref, k)).abs().max()
+            err[name] = max(err[name], float(
+                (p.detach().cpu().double() - pe.detach()).abs().max()
+                / largest.clamp_min(1e-30)))
+    say(f"  weights after 3 steps vs the float64 run, of the largest "
+        f"update: sharded {err['sharded']:.2e}, unsharded "
+        f"{err['unsharded']:.2e} (bar: the unsharded + {UPDATE_REL})")
+    if err["sharded"] > err["unsharded"] + UPDATE_REL:
+        raise AssertionError("the sharded step's updates differ")
+
+
+def two_processes(args: list[str], timeout: float) -> list[dict]:
+    """Run two ranks of ``parallel.distributed`` with ``args``, each under
+    ``timeout`` seconds; fail if either fails.  Returns their JSON lines."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "srcnn_cpp_tpu_torch.parallel.distributed",
+             f"--init-method=file://{tmp}/rendezvous", "--world-size=2",
+             f"--rank={r}", f"--timeout={timeout / 2:.0f}", *args],
+            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True) for r in range(2)]
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=timeout))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+    for r, (p, (o, err)) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"rank {r} exited {p.returncode}:\n{o}\n"
+                                 f"{err[-3000:]}")
+    return [json.loads(next(ln for ln in o.splitlines()
+                            if ln.startswith("{"))) for o, _ in outs]
+
+
+def phase_two_processes(e: Extra) -> None:
+    from srcnn_cpp_tpu_torch.parallel.distributed import run_train
+
+    backends = [("gloo", "--local-devices=2", "two ranks on cuda:0")]
+    if torch.cuda.device_count() >= 2:
+        backends.append(("nccl", "--local-devices=2", "one card per rank"))
+    say("phase 18: parallel.distributed in two processes, the rows of one "
+        "frame over both (" + "; ".join(f"{b}: {w}" for b, _, w in backends)
+        + ")")
+    ref = run_train(3, (32, 32), mesh_of(4, data=1, row=4))
+    for backend, local, where in backends:
+        t0 = time.perf_counter()
+        rows = two_processes([f"--backend={backend}", local, "--device=cuda",
+                              "--frames=2", "--size=1920x1080", "--scale=2",
+                              "--check"], 300)
+        for r in rows:
+            say(f"  {backend} rank {r['process']} of {r['processes']} on "
+                f"{r['device']}, mesh {r['mesh']}: bitexact {r['bitexact']} "
+                f"(max {r['max_abs_diff']} LSB), launches {r['launches']}, "
+                f"plain calls {r['plain_calls']}, {r['fps']:.2f} fps "
+                f"({e.gpu})")
+            if not r["bitexact"] or min(r["launches"].values()) < 1 or \
+                    max(r["plain_calls"].values()) > 0:
+                raise AssertionError(f"{backend} rank {r['process']} failed")
+        rows = two_processes([f"--backend={backend}", local, "--device=cuda",
+                              "--train", "--train-steps=3", "--size=32x32"],
+                             300)
+        for r in rows:
+            lrel = max(abs(a - b) / abs(b)
+                       for a, b in zip(r["losses"], ref["losses"]))
+            grel = abs(r["input_grad_sum"] - ref["input_grad_sum"]) / abs(
+                ref["input_grad_sum"])
+            say(f"  {backend} rank {r['process']} train: losses "
+                f"{r['losses']} vs one process {ref['losses']} (max relative "
+                f"{lrel:.2e}); input gradient sum {r['input_grad_sum']:.6g} "
+                f"vs {ref['input_grad_sum']:.6g} ({grel:.2e})")
+            if lrel > TRAIN_RTOL or grel > TRAIN_RTOL:
+                raise AssertionError(f"{backend} two-process training differs")
+        say(f"  {backend}: {time.perf_counter() - t0:.1f} s for both runs")
+    if torch.cuda.device_count() < 2:
+        say("  nccl: not run: NCCL refuses two ranks on one card (duplicate "
+            "GPU) and this machine has 1; it needs one card per rank")
+
+
+def phase_scaling(e: Extra) -> None:
+    from srcnn_cpp_tpu_torch.parallel import scaling_efficiency
+
+    b, h, w = SCALING_SHAPE
+    say(f"phase 19: scaling_efficiency on cuda:0 named 1, 2 and 4 times, "
+        f"{b}x{h}x{w}: one card, so this is tiling overhead, not scaling")
+    r = scaling_efficiency(e.weights, (h, w), batch=b,
+                           devices=["cuda:0"] * 4, iters=4)
+    for n, mps in r["mps"].items():
+        say(f"  {n} row block(s): {mps:.2f} MP/s, {mps / r['mps'][1]:.4f} of "
+            f"one block ({e.gpu})")
 
 
 if __name__ == "__main__":

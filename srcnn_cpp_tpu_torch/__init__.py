@@ -16,7 +16,9 @@ Public surface:
   (:mod:`.evaluate`, ``python -m srcnn_cpp_tpu_torch.evaluate``);
 * :class:`StreamUpscaler` — the pipelined video upscaler (:mod:`.stream`,
   ``python -m srcnn_cpp_tpu_torch.stream``);
-* :mod:`.configs` — the single-card production configurations;
+* :mod:`.configs` — the production configurations, on one card or over a
+  device mesh (:mod:`.parallel`: tiling with halo exchange, the
+  multi-process stream);
 * :mod:`.cli` — the command line (``python -m srcnn_cpp_tpu_torch``).
 """
 

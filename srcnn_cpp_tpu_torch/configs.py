@@ -1,17 +1,16 @@
-"""Named production configurations, single-card.
+"""Named production configurations.
 
-The port of ``srcnn_cpp_tpu/configs.py``: three deployment shapes with the
-knobs that matter pre-picked, each returned as a runner on one device.
+The port of ``srcnn_cpp_tpu/configs.py``: the deployment shapes with the
+knobs that matter pre-picked, each returned as a runner.
 
 * ``batch_1080p_to_4k`` — throughput batches of 1080p-class frames x2;
-* ``single_8k`` — one very large frame (e.g. 4K -> 8K) on one card;
+* ``single_8k`` — one very large frame (e.g. 4K -> 8K) on one card, or
+  with ``mesh=`` its rows (and columns) tiled over a device mesh with halo
+  exchange (:mod:`.parallel.tiling`);
 * ``stream_4k30`` — the streaming config: micro-batches in flight with
-  host I/O overlapped (:class:`.stream.StreamUpscaler`).
-
-The multi-device forms — ``single_8k(mesh=...)`` (rows tiled over a mesh
-with halo exchange) and ``stream_4k30_distributed`` — need the port of
-``parallel/`` (ROADMAP.md, "Modules to port": ``parallel/``); until then
-they raise :class:`NotImplementedError`.
+  host I/O overlapped (:class:`.stream.StreamUpscaler`);
+* ``stream_4k30_distributed`` — the multi-process frame stream
+  (:class:`.parallel.distributed.DistributedStream`).
 """
 
 from __future__ import annotations
@@ -21,11 +20,7 @@ import torch
 
 from .pipeline import upscale_bgr, upscale_bgr_batch, weights_on
 from .stream import StreamUpscaler
-from .weights import SRCNNWeights
-
-_NEEDS_PARALLEL = ("needs the port of srcnn_cpp_tpu/parallel/ (ROADMAP.md, "
-                   "'Modules to port': parallel/), not done yet")
-
+from .weights import SRCNNWeights, load_weights
 
 def batch_1080p_to_4k(weights: SRCNNWeights | None = None, batch: int = 32,
                       device="cuda"):
@@ -47,17 +42,40 @@ def batch_1080p_to_4k(weights: SRCNNWeights | None = None, batch: int = 32,
 
 def single_8k(weights: SRCNNWeights | None = None, mesh=None,
               scale: float = 2.0, device="cuda"):
-    """Runner: one huge BGR frame ``[H, W, 3]`` -> ``scale``, on one card.
+    """Runner: one huge BGR frame ``[H, W, 3]`` -> ``scale``, on ``device``.
 
-    ``mesh`` (rows tiled over several devices) is not ported yet and raises.
+    With ``mesh`` (:func:`.parallel.make_mesh`; ``device`` is then unused)
+    each block's input rows go to its device, and windowed K2, K1 and K3
+    run per block with halo exchange (:func:`.parallel.tiling.upscale_blocks`);
+    the result equals the unsharded runner's bit for bit.  H and the output
+    height must divide by the ``row`` axis (W likewise by ``col``).
     """
     if mesh is not None:
-        raise NotImplementedError(f"single_8k(mesh=...) {_NEEDS_PARALLEL}")
+        return _single_8k_mesh(weights, mesh, scale)
     device = torch.device(device)
     weights = weights_on(weights, device)
 
     def run(bgr: np.ndarray) -> np.ndarray:
         return upscale_bgr(bgr, scale, weights, device)
+
+    return run
+
+
+def _single_8k_mesh(weights: SRCNNWeights | None, mesh, scale: float):
+    from .ops.resize import scaled_size
+    from .parallel.tiling import gather_blocks, split_blocks, upscale_blocks
+
+    weights = weights if weights is not None else load_weights()
+
+    def run(bgr: np.ndarray) -> np.ndarray:
+        h, w = bgr.shape[:2]
+        ow, oh = scaled_size(w, h, scale)
+        planar = torch.from_numpy(np.ascontiguousarray(
+            np.moveaxis(np.asarray(bgr, dtype=np.uint8), -1, 0)))[None]
+        out = upscale_blocks(split_blocks(planar, mesh), weights, (h, w),
+                             (oh, ow), mesh)
+        out = gather_blocks(out, device="cpu")[0]
+        return np.ascontiguousarray(np.moveaxis(out.numpy(), 0, -1))
 
     return run
 
@@ -68,6 +86,21 @@ def stream_4k30(weights: SRCNNWeights | None = None, scale: float = 2.0,
     return StreamUpscaler(scale, weights=weights, depth=depth, device=device)
 
 
-def stream_4k30_distributed(*args, **kwargs):
-    """The multi-host frame stream: not ported yet, raises."""
-    raise NotImplementedError(f"stream_4k30_distributed {_NEEDS_PARALLEL}")
+def stream_4k30_distributed(mesh=None, weights: SRCNNWeights | None = None,
+                            scale: float = 2.0, depth: int = 2):
+    """Runner: the multi-process frame stream (BASELINE config 5).
+
+    Frames over the mesh's ``data`` axis, each frame's rows over ``row``
+    with halo exchange; every process pushes its local slab
+    (:meth:`.parallel.DistributedStream.push_local`).  Call
+    :func:`.parallel.initialize` once per process first; ``mesh=None`` is
+    :func:`.parallel.frame_mesh` with one frame per process on ``data``.
+    """
+    from .parallel.distributed import DistributedStream, frame_mesh
+
+    if mesh is None:
+        import torch.distributed as dist
+
+        mesh = frame_mesh(data=dist.get_world_size()
+                          if dist.is_initialized() else 1)
+    return DistributedStream(scale, mesh, weights=weights, depth=depth)

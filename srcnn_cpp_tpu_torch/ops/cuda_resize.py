@@ -8,26 +8,74 @@ CUDA kernel for CUDA tensors and runs the plain version
 :func:`.resize.resize_bicubic_u8`) for CPU tensors; the two are
 bit-identical, at every scale.  The kernel's block windows come from
 :func:`pre_pass_plan`, pure Python that the CPU tests check.
+
+A :class:`PreWindow` makes the pass compute one window of a larger resize:
+output rows ``rows`` and columns ``cols`` of the global ``in_hw -> out_hw``
+plan, read from an input block whose first pixel is the global source pixel
+``origin`` (a row block of a device mesh, :mod:`..parallel.tiling`).  The
+kernel reads its taps from tables, so the window is the global tables
+sliced to the window and shifted by the origin (:func:`window_tables`);
+its device code is the same.  Every output pixel runs the same taps and
+the same arithmetic as in the whole resize, so a window equals the slice of
+the whole result, bit for bit.
 """
 
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from .. import runtime
 from .color import bgr2ycrcb_u8_planar
-from .resize import cubic_tables, resize_bicubic_u8
+from .resize import resize_bicubic_u8, resize_taps_u8
 from .resize_tables import cv_cubic_tables
 
-__all__ = ["pre_upscale_fused", "pre_upscale_plain", "pre_pass_plan"]
+__all__ = ["pre_upscale_fused", "pre_upscale_plain", "pre_pass_plan",
+           "PreWindow", "window_tables", "window_source"]
 
 #: the largest output tile (rows, cols) of one block
 PRE_TILE = (64, 64)
 #: shared-memory budget of one block: the limit without an opt-in
 PRE_SMEM_BUDGET = 48 * 1024
+
+
+class PreWindow(NamedTuple):
+    """Output rows ``rows`` = (r0, r1) and columns ``cols`` = (c0, c1) of
+    the resize of a global ``in_hw`` input, computed from an input block
+    whose first pixel is global source pixel ``origin`` = (row, col)."""
+
+    in_hw: tuple[int, int]
+    rows: tuple[int, int]
+    cols: tuple[int, int]
+    origin: tuple[int, int] = (0, 0)
+
+
+def window_tables(out_hw: tuple[int, int], window: PreWindow):
+    """``(xi, xic, yi, yfc)`` of ``window``: the global tap tables of
+    :func:`.resize_tables.cv_cubic_tables` sliced to its columns and rows,
+    the indices shifted to its input block's origin (NumPy, contiguous)."""
+    (oh, ow), (h, w) = out_hw, window.in_hw
+    (r0, r1), (c0, c1), (s0, t0) = window.rows, window.cols, window.origin
+    if not (0 <= r0 < r1 <= oh and 0 <= c0 < c1 <= ow):
+        raise ValueError(f"window rows {window.rows} / cols {window.cols} "
+                         f"outside the output {out_hw}")
+    xi, xic, _ = cv_cubic_tables(ow, w)
+    yi, _, yfc = cv_cubic_tables(oh, h)
+    return (np.ascontiguousarray(xi[c0:c1] - t0), np.ascontiguousarray(xic[c0:c1]),
+            np.ascontiguousarray(yi[r0:r1] - s0), np.ascontiguousarray(yfc[r0:r1]))
+
+
+def window_source(out_hw: tuple[int, int], in_hw: tuple[int, int],
+                  rows: tuple[int, int], cols: tuple[int, int]):
+    """The global source rows ``(s0, s1)`` and columns ``(t0, t1)`` that
+    output rows ``rows`` and columns ``cols`` read: from their smallest tap
+    to their largest (the tables clamp, so both lie inside the image)."""
+    win = PreWindow(in_hw, rows, cols)
+    xi, _, yi, _ = window_tables(out_hw, win)
+    return (int(yi.min()), int(yi.max()) + 1), (int(xi.min()), int(xi.max()) + 1)
 
 
 def _window_spans(idx: np.ndarray, tile: int) -> tuple[np.ndarray, int]:
@@ -48,19 +96,38 @@ def pre_pass_smem_bytes(tile: tuple[int, int], win: tuple[int, int]) -> int:
     return 3 * wh * tw * 4 + 3 * wh * (-(-ww // 4) * 4)
 
 
-def pre_pass_plan(oh: int, ow: int, h: int, w: int) -> dict:
-    """K2's launch plan for ``[h, w] -> [oh, ow]``.
+def _tables(oh: int, ow: int, h: int, w: int, window: PreWindow | None):
+    """The tap tables a launch reads and the output extent they cover."""
+    if window is None:
+        window = PreWindow((h, w), (0, oh), (0, ow))
+    elif not (0 <= window.origin[0] and 0 <= window.origin[1]):
+        raise ValueError(f"window origin {window.origin} outside the input")
+    tabs = window_tables((oh, ow), window)
+    for idx, n, axis in ((tabs[0], w, "columns"), (tabs[2], h, "rows")):
+        if idx.min() < 0 or idx.max() >= n:
+            raise ValueError(f"the window's taps reach {axis} "
+                             f"{int(idx.min())}..{int(idx.max())} of an input "
+                             f"block of {n}")
+    return tabs
+
+
+def pre_pass_plan(oh: int, ow: int, h: int, w: int,
+                  window: PreWindow | None = None) -> dict:
+    """K2's launch plan for ``[h, w] -> [oh, ow]``, or, with ``window``, for
+    that window of the ``window.in_hw -> [oh, ow]`` resize read from an
+    ``[h, w]`` input block.
 
     A block owns :data:`PRE_TILE` output pixels (rows, cols), halved (rows
     first) until its shared memory fits :data:`PRE_SMEM_BUDGET`, as at
     strong downscales; its input window starts at
-    ``x0[bx]``, ``y0[by]``: the smallest tap of ``cubic_tables`` over its
-    columns and rows.  ``win`` (rows, cols) is the largest window of any
+    ``x0[bx]``, ``y0[by]``: the smallest tap of the (window's) tables over
+    its columns and rows.  ``win`` (rows, cols) is the largest window of any
     block.  Returns ``tile``, ``x0``, ``y0`` (int32 arrays), ``win``,
-    ``grid`` (blocks along x and y) and ``smem_bytes``.
+    ``grid`` (blocks along x and y), ``smem_bytes`` and ``out`` (the
+    output rows and columns the launch writes).
     """
-    xi = cv_cubic_tables(ow, w)[0]
-    yi = cv_cubic_tables(oh, h)[0]
+    xi, _, yi, _ = _tables(oh, ow, h, w, window)
+    oh, ow = yi.shape[0], xi.shape[0]
     th, tw = min(PRE_TILE[0], oh), min(PRE_TILE[1], ow)
     while True:
         x0, ww = _window_spans(xi, tw)
@@ -73,21 +140,29 @@ def pre_pass_plan(oh: int, ow: int, h: int, w: int) -> dict:
         else:
             tw //= 2
     return {"tile": (th, tw), "x0": x0, "y0": y0, "win": (wh, ww),
-            "grid": (len(x0), len(y0)), "smem_bytes": smem}
+            "grid": (len(x0), len(y0)), "smem_bytes": smem, "out": (oh, ow)}
 
 
-@functools.lru_cache(maxsize=32)
-def _device_plan(oh: int, ow: int, h: int, w: int, device: torch.device):
-    """:func:`pre_pass_plan` with its origins on ``device``, per geometry."""
-    plan = pre_pass_plan(oh, ow, h, w)
-    return plan, torch.from_numpy(plan["x0"]).to(device), \
-        torch.from_numpy(plan["y0"]).to(device)
+@functools.lru_cache(maxsize=64)
+def _device_plan(oh: int, ow: int, h: int, w: int, window, device: torch.device):
+    """:func:`pre_pass_plan` and its tables on ``device``, per geometry and
+    window: ``(plan, (xi, xic, yi, yfc, x0, y0))``."""
+    plan = pre_pass_plan(oh, ow, h, w, window)
+    tabs = (*_tables(oh, ow, h, w, window), plan["x0"], plan["y0"])
+    return plan, tuple(torch.from_numpy(t).to(device) for t in tabs)
 
 
-def pre_upscale_plain(bgr_p: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
-    """``resize_bicubic_u8(bgr2ycrcb_u8_planar(bgr_p), out_hw)``."""
+def pre_upscale_plain(bgr_p: torch.Tensor, out_hw: tuple[int, int],
+                      window: PreWindow | None = None) -> torch.Tensor:
+    """``resize_bicubic_u8(bgr2ycrcb_u8_planar(bgr_p), out_hw)``, or its
+    ``window`` through the window's tables."""
     pre_upscale_plain.calls += 1
-    return resize_bicubic_u8(bgr2ycrcb_u8_planar(bgr_p), out_hw)
+    ycc = bgr2ycrcb_u8_planar(bgr_p)
+    if window is None:
+        return resize_bicubic_u8(ycc, out_hw)
+    tabs = _tables(*out_hw, *bgr_p.shape[-2:], window)
+    return resize_taps_u8(ycc, *(torch.from_numpy(t).to(bgr_p.device)
+                                 for t in tabs))
 
 
 pre_upscale_plain.calls = 0
@@ -107,26 +182,27 @@ def _validate(bgr_p: torch.Tensor, out_hw) -> tuple[int, int]:
     return oh, ow
 
 
-def pre_upscale_fused(bgr_p: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
-    """Planar BGR u8 ``[B, 3, H, W]`` -> upscaled YCrCb u8 ``[B, 3, oh, ow]``."""
+def pre_upscale_fused(bgr_p: torch.Tensor, out_hw: tuple[int, int],
+                      window: PreWindow | None = None) -> torch.Tensor:
+    """Planar BGR u8 ``[B, 3, H, W]`` -> upscaled YCrCb u8 ``[B, 3, oh, ow]``;
+    with ``window``, its ``[B, 3, r1 - r0, c1 - c0]`` window of the
+    ``window.in_hw -> out_hw`` resize, ``bgr_p`` being the input block."""
     oh, ow = _validate(bgr_p, out_hw)
     if bgr_p.device.type == "cpu":
-        return pre_upscale_plain(bgr_p, (oh, ow))
+        return pre_upscale_plain(bgr_p, (oh, ow), window)
     if bgr_p.device.type != "cuda":
         raise ValueError(f"unsupported device {bgr_p.device}")
     b, _, h, w = bgr_p.shape
-    xi, xic, _ = cubic_tables(ow, w, bgr_p.device)
-    yi, _, yfc = cubic_tables(oh, h, bgr_p.device)
-    plan, x0, y0 = _device_plan(oh, ow, h, w, bgr_p.device)
-    out = torch.empty((b, 3, oh, ow), dtype=torch.uint8, device=bgr_p.device)
+    plan, tabs = _device_plan(oh, ow, h, w, window, bgr_p.device)
+    out = torch.empty((b, 3, *plan["out"]), dtype=torch.uint8,
+                      device=bgr_p.device)
     if b == 0:
         return out
     with torch.cuda.device(bgr_p.device):
         runtime.check(runtime.library().pre_pass_u8(
-            bgr_p.data_ptr(), xi.data_ptr(), xic.data_ptr(), yi.data_ptr(),
-            yfc.data_ptr(), x0.data_ptr(), y0.data_ptr(), out.data_ptr(),
-            b, h, w, oh, ow, *plan["tile"], *plan["win"], plan["smem_bytes"],
-            runtime.current_stream()), "pre_pass_u8")
+            bgr_p.data_ptr(), *(t.data_ptr() for t in tabs), out.data_ptr(),
+            b, h, w, *plan["out"], *plan["tile"], *plan["win"],
+            plan["smem_bytes"], runtime.current_stream()), "pre_pass_u8")
     pre_upscale_fused.launches += 1
     return out
 

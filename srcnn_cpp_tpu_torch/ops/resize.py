@@ -33,8 +33,8 @@ import torch
 
 from .resize_tables import cv_cubic_tables
 
-__all__ = ["scaled_size", "cubic_tables", "resize_bicubic_u8", "FILTERS",
-           "resize_separable"]
+__all__ = ["scaled_size", "cubic_tables", "resize_bicubic_u8",
+           "resize_taps_u8", "FILTERS", "resize_separable"]
 
 
 def scaled_size(w: int, h: int, scale: float) -> tuple[int, int]:
@@ -66,6 +66,13 @@ def resize_bicubic_u8(img: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tenso
     ih, iw = img.shape[-2:]
     xi, xic, _ = cubic_tables(ow, iw, img.device)
     yi, _, yfc = cubic_tables(oh, ih, img.device)
+    return resize_taps_u8(img, xi, xic, yi, yfc)
+
+
+def resize_taps_u8(img: torch.Tensor, xi, xic, yi, yfc) -> torch.Tensor:
+    """The resize through given tap tables (:func:`cubic_tables`' column
+    ``xi``/``xic`` and row ``yi``/``yfc``, on ``img``'s device), which may be
+    a window of a larger resize's tables shifted to ``img``'s origin."""
     s = img.to(torch.int32)
     rows = s.index_select(-1, xi[:, 0]) * xic[:, 0]
     for j in (1, 2, 3):

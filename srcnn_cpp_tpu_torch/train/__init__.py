@@ -1,7 +1,8 @@
-"""SRCNN training on one device (the port of ``srcnn_cpp_tpu/train``).
+"""SRCNN training (the port of ``srcnn_cpp_tpu/train``).
 
-* :mod:`.step` — :func:`mse_loss` and :func:`make_train_step` (PyTorch
-  autograd, any ``torch.optim`` optimizer);
+* :mod:`.step` — :func:`mse_loss`, :func:`make_train_step` (PyTorch
+  autograd, any ``torch.optim`` optimizer) and the mesh-parallel
+  :func:`make_sharded_train_step` with :func:`shard_batch`;
 * :mod:`.data` — the patch pipeline (:func:`dataset_from_dir`,
   :func:`patches_from_image`, :func:`iterate_minibatches`);
 * :mod:`.trainer` — :func:`fit` and the CLI

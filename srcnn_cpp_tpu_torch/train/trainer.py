@@ -6,9 +6,10 @@
 The port of ``srcnn_cpp_tpu/train/trainer.py``: the reference checkpoint's
 own recipe (Dong et al. 2014: Y-channel MSE on 33x33 bicubic-degraded
 patches) with Adam, on one device.  The default device is ``cuda``; without
-a GPU that is an error, never a silent run on the CPU.  ``--sharded`` (the
-mesh-parallel step) waits for the port of ``parallel/``.  The trained npz
-serves through :func:`srcnn_cpp_tpu_torch.load_weights` and the pipeline.
+a GPU that is an error, never a silent run on the CPU.  ``--sharded`` runs
+the mesh-parallel step (:func:`.step.make_sharded_train_step`) on
+``make_mesh()``: every visible card on the ``row`` axis (on the CPU, one
+block).  The trained npz serves through :func:`srcnn_cpp_tpu_torch.load_weights` and the pipeline.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import torch
 
 from ..cli import DEVICES, cuda_missing, device_name
 from ..models import SRCNN
+from ..parallel import make_mesh
 from ..weights import SRCNNWeights
 from ..weights.checkpoint import save_npz
 from .data import dataset_from_dir, iterate_minibatches
@@ -33,9 +35,9 @@ def fit(data_dir, scale: float = 2.0, steps: int = 200, batch: int = 64,
         seed: int = 0, log_every: int = 20, verbose: bool = True,
         device="cuda") -> tuple[SRCNNWeights, list[float]]:
     """Returns ``(weights, losses)``: the trained weights on ``device`` and
-    the loss of each step (before its update)."""
-    if sharded:
-        make_sharded_train_step()        # raises: needs the parallel/ port
+    the loss of each step (before its update).  ``sharded`` trains with the
+    mesh-parallel step on ``make_mesh()`` (every visible card on ``row``;
+    one block on ``device`` elsewhere)."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("fit: device 'cuda' but no CUDA device is "
@@ -46,7 +48,12 @@ def fit(data_dir, scale: float = 2.0, steps: int = 200, batch: int = 64,
         model = SRCNN(device=device).reset_parameters(
             torch.Generator().manual_seed(seed))
     opt = torch.optim.Adam(model.parameters(), lr=lr, eps=1e-8)
-    step = make_train_step(model, opt)
+    if sharded:
+        mesh = make_mesh() if device.type == "cuda" else \
+            make_mesh(devices=[device])
+        step = make_sharded_train_step(mesh, model, opt)
+    else:
+        step = make_train_step(model, opt)
 
     x, t = dataset_from_dir(data_dir, scale=scale)
     if len(x) < batch:
@@ -77,7 +84,8 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default="srcnn_trained.npz")
     ap.add_argument("--from-scratch", action="store_true")
     ap.add_argument("--sharded", action="store_true",
-                    help="mesh-parallel step (needs the parallel/ port)")
+                    help="mesh-parallel step: patches' rows over every "
+                         "visible card, halo exchange")
     ap.add_argument("--device", default="cuda", choices=DEVICES,
                     help="where the training runs (default cuda)")
     args = ap.parse_args(argv)
@@ -89,7 +97,7 @@ def main(argv=None) -> int:
                               from_pretrained=not args.from_scratch,
                               sharded=args.sharded, seed=args.seed,
                               device=args.device)
-    except (NotImplementedError, ValueError) as e:
+    except ValueError as e:
         print(f"{_PROG}: {e}", file=sys.stderr)
         return 1
     save_npz(args.out, weights)

@@ -320,3 +320,79 @@ def test_cuda_pipeline_runs_the_kernels(cuda, cuda_weights):
         [c + 1 for c in counts]
     d = np.abs(out.astype(int) - ref.astype(int))
     assert d.max() <= 2 and (d > 1).mean() < 1e-5
+
+
+# --- the tiled callers (parallel/tiling.py) -----------------------------------
+
+def _window_of(x, out_hw, rows, cols):
+    """K2's window ``rows`` x ``cols`` of ``x``'s resize and the input block
+    it reads: from the windows' smallest tap to its largest."""
+    from srcnn_cpp_tpu_torch.ops.cuda_resize import PreWindow, window_source
+
+    h, w = x.shape[2:]
+    (s0, s1), (t0, t1) = window_source(out_hw, (h, w), rows, cols)
+    return (x[:, :, s0:s1, t0:t1].contiguous(),
+            PreWindow((h, w), rows, cols, (s0, t0)))
+
+
+_WINDOW_CASES = [(2.0, (1, 3), (1, 4)), (1.5, (0, 2), (2, 4)),
+                 (0.75, (1, 2), (0, 1)), (3.0, (2, 3), (1, 2))]
+
+
+@pytest.mark.parametrize("s,rows,cols", _WINDOW_CASES)
+def test_windowed_pre_pass_equals_its_slice(s, rows, cols):
+    # rows/cols in thirds and quarters of the output
+    from srcnn_cpp_tpu_torch.ops.cuda_resize import pre_upscale_fused
+    from srcnn_cpp_tpu_torch.ops.resize import scaled_size
+
+    x = torch.from_numpy(_u8((2, 3, 60, 100), 7))
+    ow, oh = scaled_size(100, 60, s)
+    r = (oh * rows[0] // 3, oh * rows[1] // 3)
+    c = (ow * cols[0] // 4, ow * cols[1] // 4)
+    blk, win = _window_of(x, (oh, ow), r, c)
+    got = pre_upscale_fused(blk, (oh, ow), win)
+    assert torch.equal(got, pre_upscale_fused(x, (oh, ow))[:, :, r[0]:r[1],
+                                                            c[0]:c[1]])
+
+
+def test_windowed_pre_pass_refuses_a_short_block():
+    from srcnn_cpp_tpu_torch.ops.cuda_resize import pre_upscale_fused
+
+    x = torch.from_numpy(_u8((1, 3, 60, 100), 8))
+    blk, win = _window_of(x, (120, 200), (40, 80), (0, 200))
+    with pytest.raises(ValueError, match="taps reach"):
+        pre_upscale_fused(blk[:, :, :-1].contiguous(), (120, 200), win)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mesh", [(1, 4, 1), (2, 2, 1), (1, 2, 2)])
+def test_cuda_tiled_srcnn_bit_equal(cuda, cuda_weights, mesh):
+    from srcnn_cpp_tpu_torch.ops.cuda_srcnn import srcnn_y_fused
+    from srcnn_cpp_tpu_torch.parallel import make_mesh, upscale_y_tiled
+
+    y = _dev(_u8((3, 261, 389), 3), cuda)
+    m = make_mesh(*mesh, devices=[cuda] * 4)
+    launches = srcnn_y_fused.launches
+    got = upscale_y_tiled(y, cuda_weights, m)
+    torch.cuda.synchronize()
+    assert srcnn_y_fused.launches - launches == 4
+    assert torch.equal(got, srcnn_y_fused(y, cuda_weights))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,rows,cols", _WINDOW_CASES)
+def test_cuda_windowed_pre_pass_equals_its_slice(cuda, s, rows, cols):
+    from srcnn_cpp_tpu_torch.ops.cuda_resize import pre_upscale_fused
+    from srcnn_cpp_tpu_torch.ops.resize import scaled_size
+
+    x = _dev(_u8((2, 3, 540, 960), 9), cuda)
+    ow, oh = scaled_size(960, 540, s)
+    r = (oh * rows[0] // 3, oh * rows[1] // 3)
+    c = (ow * cols[0] // 4, ow * cols[1] // 4)
+    blk, win = _window_of(x, (oh, ow), r, c)
+    launches = pre_upscale_fused.launches
+    got = pre_upscale_fused(blk, (oh, ow), win)
+    torch.cuda.synchronize()
+    assert pre_upscale_fused.launches - launches == 1
+    assert torch.equal(got, pre_upscale_fused(x, (oh, ow))[:, :, r[0]:r[1],
+                                                            c[0]:c[1]])

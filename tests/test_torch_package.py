@@ -21,6 +21,8 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
         "import srcnn_cpp_tpu_torch.configs, srcnn_cpp_tpu_torch.train\n"
         "import srcnn_cpp_tpu_torch.train.trainer\n"
         "import srcnn_cpp_tpu_torch.weights.checkpoint\n"
+        "import srcnn_cpp_tpu_torch.parallel.distributed\n"
+        "import srcnn_cpp_tpu_torch.parallel.multihost\n"
         "from srcnn_cpp_tpu_torch import load_weights\n"
         "from srcnn_cpp_tpu_torch.weights import weights_npz\n"
         "load_weights()\n"

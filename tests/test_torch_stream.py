@@ -137,13 +137,31 @@ def test_single_8k_and_stream_configs_on_one_device():
     assert len(outs) == 2 and outs[0].shape == (40, 56, 3)
 
 
-def test_multi_device_configs_raise():
-    from srcnn_cpp_tpu_torch.configs import single_8k, stream_4k30_distributed
+def test_single_8k_over_a_mesh_matches_one_device():
+    from srcnn_cpp_tpu_torch.configs import single_8k
+    from srcnn_cpp_tpu_torch.parallel import make_mesh
 
-    with pytest.raises(NotImplementedError, match="parallel"):
-        single_8k(mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="parallel"):
-        stream_4k30_distributed(mesh=object())
+    frame = _frames(1, 32, 40, 4)[0]
+    mesh = make_mesh(data=1, row=2, col=2, devices=["cpu"] * 4)
+    assert np.array_equal(single_8k(mesh=mesh)(frame),
+                          single_8k(device="cpu")(frame))
+
+
+def test_stream_4k30_distributed_in_one_process():
+    from srcnn_cpp_tpu_torch.configs import stream_4k30_distributed
+    from srcnn_cpp_tpu_torch.parallel.distributed import (DistributedStream,
+                                                          frame_mesh)
+    from srcnn_cpp_tpu_torch.pipeline import upscale_bgr_batch
+
+    frames = _frames(4, 24, 32, 5)
+    mesh = frame_mesh(data=2, devices=["cpu"] * 4)
+    up = stream_4k30_distributed(mesh=mesh, depth=1)
+    assert isinstance(up, DistributedStream)
+    planar = np.ascontiguousarray(np.moveaxis(frames, -1, 1))
+    outs = [o for i in (0, 2) if (o := up.push_local(planar[i:i + 2]))
+            is not None] + list(up.drain())
+    got = np.concatenate([np.moveaxis(o, 1, -1) for o in outs])
+    assert np.array_equal(got, upscale_bgr_batch(frames, 2.0, device="cpu"))
 
 
 # --- on the card ---------------------------------------------------------------

@@ -143,12 +143,27 @@ def test_step_runs_forward_and_backward_with_tf32_off_on_cudnn(weights, batch):
     assert after == (True, True)                      # restored
 
 
-@pytest.mark.parametrize("name", ["make_sharded_train_step", "shard_batch"])
-def test_the_sharded_step_waits_for_the_parallel_port(name):
-    import srcnn_cpp_tpu_torch.train as train
+@pytest.mark.parametrize("mesh", [(1, 2, 1), (2, 1, 2)])
+def test_the_sharded_step_matches_the_step(mesh):
+    from srcnn_cpp_tpu_torch.models import SRCNN
+    from srcnn_cpp_tpu_torch.parallel import make_mesh
+    from srcnn_cpp_tpu_torch.train import (make_sharded_train_step,
+                                           make_train_step, shard_batch)
 
-    with pytest.raises(NotImplementedError, match="parallel/"):
-        getattr(train, name)(None, None)
+    rng = np.random.default_rng(4)
+    x = rng.integers(0, 256, (2, 20, 24), dtype=np.uint8)
+    t = np.clip(x.astype(np.float32) * 1.02 - 2.0, 0, 255)
+    m = make_mesh(*mesh, devices=["cpu"] * int(np.prod(mesh)))
+    a, b = SRCNN.from_weights(), SRCNN.from_weights()
+    sa = make_sharded_train_step(m, a, torch.optim.Adam(a.parameters(),
+                                                        lr=1e-4, eps=1e-8))
+    sb = make_train_step(b, torch.optim.Adam(b.parameters(), lr=1e-4,
+                                             eps=1e-8))
+    xs, ts = shard_batch(m, x), shard_batch(m, t)
+    assert len(xs) == m.size and all(blk.device.type == "cpu" for blk in xs)
+    for _ in range(2):
+        la, lb = sa(xs, ts), sb(x, t)
+        assert abs(la - lb) <= 1e-5 * abs(lb)
 
 
 # --- the data pipeline ---------------------------------------------------------
@@ -272,9 +287,15 @@ def test_train_cli_default_device_without_gpu_exits_1(tmp_path, monkeypatch,
     assert not (tmp_path / "x.npz").exists()
 
 
-def test_train_cli_sharded_names_the_parallel_port(tmp_path, capsys):
-    from srcnn_cpp_tpu_torch.train.trainer import main
+def test_train_cli_sharded_on_cpu(tmp_path, capsys):
+    from srcnn_cpp_tpu_torch.train.trainer import fit, main
+    from srcnn_cpp_tpu_torch.weights import load_weights
 
-    assert main(["--data", str(_images(tmp_path)), "--sharded",
-                 "--device=cpu", "--out", str(tmp_path / "x.npz")]) == 1
-    assert "parallel/" in capsys.readouterr().err
+    out = tmp_path / "x.npz"
+    assert main(["--data", str(_images(tmp_path)), "--sharded", "--steps=2",
+                 "--batch=8", "--device=cpu", "--out", str(out)]) == 0
+    assert "final mse" in capsys.readouterr().out
+    w = load_weights(out)
+    _, losses = fit(_images(tmp_path), steps=2, batch=8, verbose=False,
+                    device="cpu")
+    assert np.isfinite(losses).all() and w.conv1_w.shape == (64, 1, 9, 9)
