@@ -32,11 +32,19 @@ with the launch counts set to 0 just before and read just after:
   K1 tiled bit-equal to K1 (14); windowed K2 and tiled K3 bit-equal to K2
   and K3 at x2, x1.5, x1.25, x0.75 and x3 (15); ``single_8k(mesh=row 4)``
   bit-equal to ``single_8k()``, with its times beside the unsharded run's
-  (16); the sharded train step against ``make_train_step`` (17); two
+  (16); ``single_8k(mesh=...)`` where the mesh does not divide the output,
+  3840x2160 x1.25 and 1920x1080 x1.5 over 8 row blocks and 1366x768 x1.5
+  over (1,2,2), bit-equal with one launch of each kernel per block and
+  timed the same way (16b); the sharded train step against
+  ``make_train_step`` (17); two
   processes of ``parallel.distributed`` on the card over gloo, the stream
   bit-exact and the trainer's losses equal to one process's (18; over
   NCCL with one card per process where there are two cards); and
-  ``scaling_efficiency`` as one card's tiling overhead (19).
+  ``scaling_efficiency`` as one card's tiling overhead (19);
+* phase 20, ``utils.profiling`` on the main path: ``throughput`` beside
+  phase 6's CUDA-event rate, ``StageTimer`` over the H2D, device and D2H
+  stages of ``upscale_bgr_batch``, and a ``trace`` that must name the
+  path's three kernels.
 
 Any failure raises and the exit code is non-zero.  The last line of
 standard output is a JSON object ``{"ok": true, "device": {...}}``; the
@@ -402,9 +410,11 @@ def main() -> int:
     phase_tiled_k1(extra)
     phase_tiled_k2_k3(extra)
     phase_single_8k_mesh(extra)
+    phase_single_8k_uneven(extra)
     phase_sharded_train(extra)
     phase_two_processes(extra)
     phase_scaling(extra)
+    phase_profiling(extra, frames, mpix / (dev_ms / 1e3))
 
     replaces = {
         "pre_upscale_fused": ("srcnn_cpp_tpu_torch/csrc/pre_pass.cu",
@@ -972,67 +982,102 @@ def phase_tiled_k2_k3(e: Extra) -> None:
                 raise AssertionError(f"{tag}: not one launch per block")
 
 
-def phase_single_8k_mesh(e: Extra) -> None:
+def mesh_run(e: Extra, frame: np.ndarray, scale: float, mesh, name: str,
+             over: str) -> None:
+    """``single_8k(mesh=...)`` against ``single_8k()`` on ``frame``.  Each
+    is driven with the counts at 0: one launch of each of K2, K1 and K3 per
+    block (one in all untiled), no plain call, the results bit-equal.  Then
+    their times: host arrays in and out (median of 5), the device span of
+    the planar pipeline against its blocks' (CUDA events, median of 10) and
+    the profiler's device work, busy share and activities (5 calls)."""
     from srcnn_cpp_tpu_torch.configs import single_8k
     from srcnn_cpp_tpu_torch.kernel_ab import profile
+    from srcnn_cpp_tpu_torch.ops.resize import scaled_size
     from srcnn_cpp_tpu_torch.parallel.tiling import split_blocks, upscale_blocks
     from srcnn_cpp_tpu_torch.pipeline import upscale_planar
 
-    (h, w), (oh, ow) = FRAME_8K, (2 * FRAME_8K[0], 2 * FRAME_8K[1])
-    say(f"phase 16: configs.single_8k(mesh=row 4 over cuda:0) {h}x{w} -> "
-        f"{oh}x{ow} vs single_8k(), bit-equal")
-    mesh = mesh_of(4, data=1, row=4)
-    frame = e.rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
-    runs = {"unsharded": single_8k(e.weights), "row 4": single_8k(e.weights,
-                                                                   mesh=mesh)}
+    runs = {"unsharded": single_8k(e.weights, scale=scale),
+            name: single_8k(e.weights, mesh=mesh, scale=scale)}
     outs = {}
-    for name, run in runs.items():
-        outs[name], n = e.drive(f"single_8k {name}", lambda: run(frame),
-                                ("pre_upscale_fused", "srcnn_y_fused",
-                                 "merge_ycrcb_to_bgr_fused"))
-        want = 4 if name == "row 4" else 1
+    for run_name, run in runs.items():
+        outs[run_name], n = e.drive(f"single_8k {run_name}",
+                                    lambda: run(frame),
+                                    ("pre_upscale_fused", "srcnn_y_fused",
+                                     "merge_ycrcb_to_bgr_fused"))
+        want = mesh.size if run_name == name else 1
         if any(n[k] != want for k in ("pre_upscale_fused", "srcnn_y_fused",
                                       "merge_ycrcb_to_bgr_fused")):
-            raise AssertionError(f"single_8k {name}: launches {n}, not "
+            raise AssertionError(f"single_8k {run_name}: launches {n}, not "
                                  f"{want} of each of K2, K1, K3")
-    if not np.array_equal(outs["row 4"], outs["unsharded"]):
-        d = np.abs(outs["row 4"].astype(int) - outs["unsharded"].astype(int))
+    if not np.array_equal(outs[name], outs["unsharded"]):
+        d = np.abs(outs[name].astype(int) - outs["unsharded"].astype(int))
         raise AssertionError(f"single_8k(mesh) differs: {(d > 0).sum()} "
                              f"values, max {d.max()}")
-    say("  single_8k(mesh=row 4) vs single_8k(): bit-equal")
+    say(f"  single_8k(mesh={name}) vs single_8k(): bit-equal")
+    h, w = frame.shape[:2]
+    ow, oh = scaled_size(w, h, scale)
     host = {}
-    for name, run in runs.items():
+    for run_name, run in runs.items():
         ts = []
         for _ in range(5):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             run(frame)
             ts.append((time.perf_counter() - t0) * 1e3)
-        host[name] = statistics.median(ts)
+        host[run_name] = statistics.median(ts)
     x = torch.from_numpy(np.ascontiguousarray(
         np.moveaxis(frame, -1, 0)))[None].cuda()
     blocks = split_blocks(x, mesh)
-    dev = {"unsharded": median_ms(lambda: upscale_planar(
-        x, e.weights, (oh, ow)), 10),
-        "row 4": median_ms(lambda: upscale_blocks(
-            blocks, e.weights, (h, w), (oh, ow), mesh), 10)}
-    prof = {"unsharded": profile(lambda: upscale_planar(
-        x, e.weights, (oh, ow)), iters=5),
-        "row 4": profile(lambda: upscale_blocks(
-            blocks, e.weights, (h, w), (oh, ow), mesh), iters=5)}
-    for name in runs:
-        p = prof[name]
+    calls = {"unsharded": lambda: upscale_planar(x, e.weights, (oh, ow)),
+             name: lambda: upscale_blocks(blocks, e.weights, (h, w), (oh, ow),
+                                          mesh)}
+    dev = {k: median_ms(f, 10) for k, f in calls.items()}
+    prof = {k: profile(f, iters=5) for k, f in calls.items()}
+    for run_name in runs:
+        p = prof[run_name]
         top = sorted(p["kernels_ms_per_call"].items(), key=lambda kv: -kv[1])
-        say(f"  single_8k {name}: host arrays in and out {host[name]:.1f} ms "
-            f"(median of 5), device span {dev[name]:.4f} ms (CUDA events, "
-            f"median of 10); profiler: {p['device_ms_per_call']:.4f} ms of "
-            f"device work in a {p['span_ms_per_call']:.4f} ms span (busy "
+        say(f"  single_8k {run_name}: host arrays in and out "
+            f"{host[run_name]:.1f} ms (median of 5), device span "
+            f"{dev[run_name]:.4f} ms (CUDA events, median of 10); profiler: "
+            f"{p['device_ms_per_call']:.4f} ms of device work in a "
+            f"{p['span_ms_per_call']:.4f} ms span (busy "
             f"{p['busy_share']:.3f}), {p['activities_per_call']:.0f} device "
             f"activities per call, most time: " + "; ".join(
                 f"{k[:40]} {v:.4f} ms" for k, v in top[:4]) + f" ({e.gpu})")
-    say(f"  tiling over 4 row blocks on one card: device span "
-        f"{dev['row 4'] / dev['unsharded'] - 1:+.2%}, host arrays "
-        f"{host['row 4'] / host['unsharded'] - 1:+.2%}")
+    say(f"  tiling over {over} on one card: device span "
+        f"{dev[name] / dev['unsharded'] - 1:+.2%}, host arrays "
+        f"{host[name] / host['unsharded'] - 1:+.2%}")
+
+
+def phase_single_8k_mesh(e: Extra) -> None:
+    (h, w), (oh, ow) = FRAME_8K, (2 * FRAME_8K[0], 2 * FRAME_8K[1])
+    say(f"phase 16: configs.single_8k(mesh=row 4 over cuda:0) {h}x{w} -> "
+        f"{oh}x{ow} vs single_8k(), bit-equal")
+    mesh = mesh_of(4, data=1, row=4)
+    frame = e.rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+    mesh_run(e, frame, 2.0, mesh, "row 4", "4 row blocks")
+
+
+#: phase 16b's uneven splits: frame (H, W), scale, mesh (data, row, col)
+UNEVEN = (((2160, 3840), 1.25, (1, 8, 1)),    # 2,700 output rows over 8
+          ((1080, 1920), 1.5, (1, 8, 1)),     # 1,620 output rows over 8
+          ((768, 1366), 1.5, (1, 2, 2)))      # 2,049 output columns over 2
+
+
+def phase_single_8k_uneven(e: Extra) -> None:
+    from srcnn_cpp_tpu_torch.ops.resize import scaled_size
+
+    say("phase 16b: configs.single_8k(mesh=...) over cuda:0 where the mesh "
+        "does not divide the output: uneven splits, bit-equal to "
+        "single_8k()")
+    for (h, w), scale, (d, r, c) in UNEVEN:
+        ow, oh = scaled_size(w, h, scale)
+        mesh = mesh_of(d * r * c, data=d, row=r, col=c)
+        name = f"({d},{r},{c})"
+        say(f"  {w}x{h} x{scale:g} -> {ow}x{oh} over {name}: output rows "
+            f"{oh} % {r} = {oh % r}, columns {ow} % {c} = {ow % c}")
+        frame = e.rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+        mesh_run(e, frame, scale, mesh, name, f"{name} blocks")
 
 
 def phase_sharded_train(e: Extra) -> None:
@@ -1193,6 +1238,65 @@ def phase_scaling(e: Extra) -> None:
     for n, mps in r["mps"].items():
         say(f"  {n} row block(s): {mps:.2f} MP/s, {mps / r['mps'][1]:.4f} of "
             f"one block ({e.gpu})")
+
+
+def phase_profiling(e: Extra, frames: np.ndarray, event_mps: float) -> None:
+    import tempfile
+
+    from srcnn_cpp_tpu_torch.pipeline import upscale_bgr_batch, upscale_planar
+    from srcnn_cpp_tpu_torch.utils.profiling import (StageTimer, throughput,
+                                                     trace)
+
+    say(f"phase 20: utils.profiling on the main path, [{BATCH},3,{IH},{IW}] "
+        f"x{SCALE:g}")
+    w = e.weights
+    mps = throughput(lambda: upscale_planar(e.x, w, (OH, OW)),
+                     BATCH * OH * OW)
+    say(f"  throughput(upscale_planar): {mps:.2f} MP/s (best of 3 runs of 6 "
+        f"calls, each fenced by a host fetch of its last output); CUDA "
+        f"events, phase 6: {event_mps:.2f} MP/s ({e.gpu})")
+
+    def staged(timer: StageTimer) -> np.ndarray:
+        # upscale_bgr_batch's steps, one span each
+        st = {}
+        with timer.span("H2D", fetch=lambda: st["x"][:1, :1, :1, :1]):
+            st["x"] = torch.from_numpy(np.ascontiguousarray(
+                np.moveaxis(frames, -1, 1))).to("cuda")
+        with timer.span("device", fetch=lambda: st["y"][:1, :1, :1, :1]):
+            st["y"] = upscale_planar(st["x"], w, (OH, OW))
+        with timer.span("D2H"):
+            out = np.ascontiguousarray(np.moveaxis(st["y"].cpu().numpy(), 1,
+                                                   -1))
+        return out
+
+    staged(StageTimer())
+    timer = StageTimer()
+    out, _ = e.drive("StageTimer over upscale_bgr_batch's stages",
+                     lambda: staged(timer),
+                     ("pre_upscale_fused", "srcnn_y_fused",
+                      "merge_ycrcb_to_bgr_fused"))
+    if not np.array_equal(out, upscale_bgr_batch(frames, SCALE, w, "cuda")):
+        raise AssertionError("the staged call differs from upscale_bgr_batch")
+    for line in timer.report().splitlines():
+        say(f"  {line}")
+    say(f"  (StageTimer, one call, {e.gpu})")
+
+    want = ("pre_pass_kernel", "srcnn_conv_kernel", "merge_vec_kernel")
+    with tempfile.TemporaryDirectory() as tmp:
+        with trace(tmp) as logdir:
+            upscale_bgr_batch(frames, SCALE, w, "cuda")
+        path = Path(logdir) / "trace.json"
+        size = path.stat().st_size
+        events = json.loads(path.read_text())["traceEvents"]
+    found = {k: [ev for ev in events if k in ev.get("name", "")]
+             for k in want}
+    say(f"  trace(): {size} bytes of Chrome trace JSON, {len(events)} "
+        f"events; " + "; ".join(
+            f"{k}: {len(v)} event(s), {sum(ev.get('dur', 0) for ev in v):.1f}"
+            f" us" for k, v in found.items()) + f" ({e.gpu})")
+    missing = [k for k, v in found.items() if not v]
+    if missing:
+        raise AssertionError(f"the trace names none of {missing}")
 
 
 if __name__ == "__main__":

@@ -11,7 +11,9 @@ Public surface:
   pipeline (the ``srcnn`` binary equivalent);
 * :func:`process_srcnn` — the raw-buffer API (``ProcessSRCNN``,
   reference src/test.cpp:345);
-* :func:`load_weights` — the pretrained SRCNN 9-5-5 checkpoint as tensors;
+* :func:`load_weights` — the pretrained SRCNN 9-5-5 checkpoint as tensors
+  (:class:`SRCNNWeights`);
+* :class:`SRCNN` — the model family as a ``torch.nn.Module`` (:mod:`.models`);
 * :func:`evaluate_image` — the Resize.m evaluation protocol
   (:mod:`.evaluate`, ``python -m srcnn_cpp_tpu_torch.evaluate``);
 * :class:`StreamUpscaler` — the pipelined video upscaler (:mod:`.stream`,
@@ -31,10 +33,14 @@ def __getattr__(name):
         from . import pipeline
 
         return getattr(pipeline, name)
-    if name == "load_weights":
-        from .weights import load_weights
+    if name in ("load_weights", "SRCNNWeights"):
+        from . import weights
 
-        return load_weights
+        return getattr(weights, name)
+    if name == "SRCNN":
+        from .models import SRCNN
+
+        return SRCNN
     if name == "evaluate_image":
         from .evaluate import evaluate_image
 

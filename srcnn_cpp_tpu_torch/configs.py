@@ -47,8 +47,10 @@ def single_8k(weights: SRCNNWeights | None = None, mesh=None,
     With ``mesh`` (:func:`.parallel.make_mesh`; ``device`` is then unused)
     each block's input rows go to its device, and windowed K2, K1 and K3
     run per block with halo exchange (:func:`.parallel.tiling.upscale_blocks`);
-    the result equals the unsharded runner's bit for bit.  H and the output
-    height must divide by the ``row`` axis (W likewise by ``col``).
+    the result equals the unsharded runner's bit for bit.  Any H and W
+    serve: an axis that does not divide the input or output size splits it
+    unevenly (``tensor_split``).  A geometry whose blocks are too small for
+    their halos raises ValueError.
     """
     if mesh is not None:
         return _single_8k_mesh(weights, mesh, scale)

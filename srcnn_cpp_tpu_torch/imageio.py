@@ -21,6 +21,25 @@ except ImportError:  # pragma: no cover - exercised only on cv2-less installs
     _HAVE_CV2 = False
 
 
+def sniff_format(path: str | Path) -> str | None:
+    """Magic-byte format detection (reference test.cpp:136-195 parity).
+
+    Returns "jpeg", "png", "bmp", or None.
+    """
+    try:
+        with open(path, "rb") as f:
+            head = f.read(8)
+    except OSError:
+        return None
+    if head[:2] == b"\xff\xd8":
+        return "jpeg"
+    if head[:8] == b"\x89PNG\r\n\x1a\n":
+        return "png"
+    if head[:2] == b"BM":
+        return "bmp"
+    return None
+
+
 def conv_image(buf, w: int, h: int, d: int) -> np.ndarray:
     """Normalize an interleaved pixel buffer to 3-channel RGB uint8 [H,W,3].
 

@@ -1,11 +1,12 @@
-"""Planar BGR <-> YCrCb conversion, bit-exact with OpenCV's uint8 path.
+"""BGR <-> YCrCb conversion, bit-exact with OpenCV's uint8 path.
 
 The reference delegates colorspace conversion to OpenCV (reference
 src/srcnn.cpp:509 ``cvtColor(BGR2YCrCb)`` and :657 the inverse).  OpenCV's
 uint8 conversion is fixed-point: 14-bit scaled integer coefficients with
 round-half-up descaling.  Here that arithmetic runs in int32 torch ops —
-the same constants as ``srcnn_cpp_tpu/ops/color.py:23-30`` — on planar
-``[..., 3, H, W]`` tensors of any device.  The pre- and post-pass CUDA
+the same constants as ``srcnn_cpp_tpu/ops/color.py:23-30`` — on tensors of
+any device: channels-last ``[..., 3]`` (OpenCV's interleaved layout) or
+planar ``[..., 3, H, W]`` (the pipeline's).  The pre- and post-pass CUDA
 kernels (``csrc/pre_pass.cu``, ``csrc/merge.cu``) restate the same integer
 arithmetic per pixel.
 """
@@ -29,19 +30,37 @@ def _descale(x: torch.Tensor) -> torch.Tensor:
     return (x + _HALF) >> _SHIFT
 
 
-def bgr2ycrcb_u8_planar(bgr_p: torch.Tensor) -> torch.Tensor:
-    """uint8 planar BGR ``[..., 3, H, W]`` -> planar YCrCb, OpenCV-bit-exact."""
-    b, g, r = bgr_p.to(torch.int32).unbind(-3)
+def _bgr2ycrcb(bgr: torch.Tensor, dim: int) -> torch.Tensor:
+    b, g, r = bgr.to(torch.int32).unbind(dim)
     y = _descale(b * _B2Y + g * _G2Y + r * _R2Y)
     cr = _descale((r - y) * _R2CR + _DELTA)
     cb = _descale((b - y) * _B2CB + _DELTA)
-    return torch.stack([y, cr, cb], dim=-3).clamp(0, 255).to(torch.uint8)
+    return torch.stack([y, cr, cb], dim=dim).clamp(0, 255).to(torch.uint8)
+
+
+def _ycrcb2bgr(ycrcb: torch.Tensor, dim: int) -> torch.Tensor:
+    y, cr, cb = ycrcb.to(torch.int32).unbind(dim)
+    b = y + _descale((cb - 128) * _CB2B)
+    g = y + _descale((cb - 128) * _CB2G + (cr - 128) * _CR2G)
+    r = y + _descale((cr - 128) * _CR2R)
+    return torch.stack([b, g, r], dim=dim).clamp(0, 255).to(torch.uint8)
+
+
+def bgr2ycrcb_u8(bgr: torch.Tensor) -> torch.Tensor:
+    """uint8 BGR ``[..., 3]`` -> uint8 YCrCb ``[..., 3]``, OpenCV-bit-exact."""
+    return _bgr2ycrcb(bgr, -1)
+
+
+def ycrcb2bgr_u8(ycrcb: torch.Tensor) -> torch.Tensor:
+    """uint8 YCrCb ``[..., 3]`` -> uint8 BGR ``[..., 3]``, OpenCV-bit-exact."""
+    return _ycrcb2bgr(ycrcb, -1)
+
+
+def bgr2ycrcb_u8_planar(bgr_p: torch.Tensor) -> torch.Tensor:
+    """uint8 planar BGR ``[..., 3, H, W]`` -> planar YCrCb, OpenCV-bit-exact."""
+    return _bgr2ycrcb(bgr_p, -3)
 
 
 def ycrcb2bgr_u8_planar(ycrcb_p: torch.Tensor) -> torch.Tensor:
     """uint8 planar YCrCb ``[..., 3, H, W]`` -> planar BGR, OpenCV-bit-exact."""
-    y, cr, cb = ycrcb_p.to(torch.int32).unbind(-3)
-    b = y + _descale((cb - 128) * _CB2B)
-    g = y + _descale((cb - 128) * _CB2G + (cr - 128) * _CR2G)
-    r = y + _descale((cr - 128) * _CR2R)
-    return torch.stack([b, g, r], dim=-3).clamp(0, 255).to(torch.uint8)
+    return _ycrcb2bgr(ycrcb_p, -3)

@@ -170,9 +170,11 @@ class DistributedStream:
         shape = self._global_shape(local_bgr_p.shape)
         b, _, h, w = shape
         ow, oh = scaled_size(w, h, self.scale)
-        if b % mesh.shape["data"]:
-            raise ValueError(f"global batch {b} not divisible by the data "
-                             f"axis {mesh.shape['data']}")
+        nd, nr = mesh.shape["data"], mesh.shape["row"]
+        # each process's slab is its even share, as in the JAX stream
+        if b % nd or h % nr or oh % nr:
+            raise ValueError(f"global batch {b} / height {h} / output height "
+                             f"{oh} not divisible by mesh {nd}x{nr}")
         pre_upscale_halos((h, w), (oh, ow), mesh.devices.shape)  # raises
         lb = _local_bounds(mesh, shape)
         if (lb[0][1] - lb[0][0], lb[2][1] - lb[2][0]) != \

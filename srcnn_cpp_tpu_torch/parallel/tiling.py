@@ -35,7 +35,9 @@ The windowed kernel reads the global tap tables sliced to the window
 (:class:`..ops.cuda_resize.PreWindow`), so it equals the slice of the
 monolithic K2 at every scale and split.  The JAX version's phase-plan,
 parity and 128-lane refusals (:482-509) are Mosaic constraints and have no
-counterpart: it refuses only where the mesh does not divide the geometry.
+counterpart.  Splits may be uneven (``tensor_split``'s cuts of the input
+and of the output); it refuses only where a halo would reach past one
+neighbour.
 
 **K3 on a tile** (:func:`merge_blocks`): pointwise, no halo.
 
@@ -340,7 +342,7 @@ def _tiled_y(y: torch.Tensor, weights, mesh: Mesh) -> torch.Tensor:
 # --- K2 and K3 on tiles --------------------------------------------------------
 
 class PreHalos(NamedTuple):
-    """The even splits of a pre-pass over a mesh: cut points of the input
+    """The splits of a pre-pass over a mesh: cut points of the input
     and output rows and columns, and each block's halo (int arrays shaped
     like the mesh, read-only): rows from above (``top``) and below
     (``bot``), columns from the left (``lft``) and right (``rgt``)."""
@@ -359,13 +361,11 @@ class PreHalos(NamedTuple):
 def pre_upscale_halos(in_hw, out_hw, mesh_shape) -> PreHalos:
     """:class:`PreHalos` of a ``in_hw -> out_hw`` pre-pass over ``(data,
     row, col)`` = ``mesh_shape``, computed once per geometry from the
-    global tap tables.  Raises ValueError where the mesh does not divide
-    the geometry or a halo would reach past one neighbour."""
+    global tap tables.  Input and output split as ``tensor_split`` does,
+    unevenly where an axis does not divide the size.  Raises ValueError
+    where a halo would reach past one neighbour."""
     (h, w), (oh, ow) = in_hw, out_hw
     _, nr, nc = mesh_shape
-    if h % nr or oh % nr or w % nc or ow % nc:
-        raise ValueError(f"{h}x{w} -> {oh}x{ow} is not divisible by the "
-                         f"mesh's {nr} rows x {nc} columns")
     ri, ro = tuple(bounds(h, nr)), tuple(bounds(oh, nr))
     ci, co = tuple(bounds(w, nc)), tuple(bounds(ow, nc))
     halo = {k: np.zeros(mesh_shape, dtype=int)
@@ -376,8 +376,10 @@ def pre_upscale_halos(in_hw, out_hw, mesh_shape) -> PreHalos:
                                            (co[c], co[c + 1]))
         halo["top"][q], halo["bot"][q] = max(0, ri[r] - s0), max(0, s1 - ri[r + 1])
         halo["lft"][q], halo["rgt"][q] = max(0, ci[c] - t0), max(0, t1 - ci[c + 1])
-    if max(halo["top"].max(), halo["bot"].max()) > h // nr or \
-            max(halo["lft"].max(), halo["rgt"].max()) > w // nc:
+    # a halo may not outreach the smallest block of its axis (the split
+    # is uneven where the axis does not divide the size)
+    if max(halo["top"].max(), halo["bot"].max()) > min(np.diff(ri)) or \
+            max(halo["lft"].max(), halo["rgt"].max()) > min(np.diff(ci)):
         raise ValueError(f"{h}x{w} -> {oh}x{ow} over {nr}x{nc} blocks: a "
                          f"halo reaches past one neighbour")
     for a in halo.values():
@@ -388,8 +390,9 @@ def pre_upscale_halos(in_hw, out_hw, mesh_shape) -> PreHalos:
 def pre_upscale_blocks(blocks: np.ndarray, in_hw, out_hw,
                        mesh: Mesh) -> np.ndarray:
     """Windowed K2 on each block of a grid of planar BGR blocks ``[b, 3, h,
-    w]`` (the even split of a global ``in_hw`` frame); returns the grid of
-    upscaled YCrCb blocks, the even split of ``out_hw``."""
+    w]`` (the ``tensor_split`` of a global ``in_hw`` frame, even or not);
+    returns the grid of upscaled YCrCb blocks, the same split of
+    ``out_hw``."""
     in_hw, out_hw = tuple(map(int, in_hw)), tuple(map(int, out_hw))
     p = pre_upscale_halos(in_hw, out_hw, mesh.devices.shape)
     ext_c, lc = _exchange(blocks, mesh, 2, p.lft, p.rgt)
@@ -408,9 +411,11 @@ def pre_upscale_fused_rows(bgr_p: torch.Tensor, out_hw,
                            mesh: Mesh) -> torch.Tensor:
     """Planar BGR u8 ``[B, 3, H, W]`` (or ``[3, H, W]``) -> upscaled YCrCb
     u8, batch over ``data``, rows over ``row`` and columns over ``col``:
-    windowed K2 per block, bit-equal to K2 on the whole frame.  Raises
-    ValueError where the mesh does not divide the geometry (the JAX
-    version returns None there, and also where Mosaic has no plan)."""
+    windowed K2 per block, bit-equal to K2 on the whole frame, at any
+    split (uneven where an axis does not divide the size).  Raises
+    ValueError where a halo would reach past one neighbour (the JAX
+    version returns None where the mesh does not divide the geometry, and
+    also where Mosaic has no plan)."""
     x = bgr_p[None] if bgr_p.dim() == 3 else bgr_p
     oh, ow = int(out_hw[0]), int(out_hw[1])
     out = pre_upscale_blocks(split_blocks(x, mesh), x.shape[2:], (oh, ow),

@@ -380,6 +380,26 @@ def test_cuda_tiled_srcnn_bit_equal(cuda, cuda_weights, mesh):
 
 
 @pytest.mark.cuda
+def test_cuda_single_8k_uneven_mesh_bit_equal(cuda, cuda_weights):
+    # 37 rows in, 55 out over 8 row blocks: uneven splits, K2, K1 and K3
+    # once per block on the card
+    from srcnn_cpp_tpu_torch.configs import single_8k
+    from srcnn_cpp_tpu_torch.ops.cuda_merge import merge_ycrcb_to_bgr_fused
+    from srcnn_cpp_tpu_torch.ops.cuda_resize import pre_upscale_fused
+    from srcnn_cpp_tpu_torch.ops.cuda_srcnn import srcnn_y_fused
+    from srcnn_cpp_tpu_torch.parallel import make_mesh
+
+    frame = _u8((37, 26, 3), 3)
+    kernels = (pre_upscale_fused, srcnn_y_fused, merge_ycrcb_to_bgr_fused)
+    before = [f.launches for f in kernels]
+    got = single_8k(cuda_weights, mesh=make_mesh(1, 8, devices=[cuda] * 8),
+                    scale=1.5)(frame)
+    assert [f.launches - n for f, n in zip(kernels, before)] == [8, 8, 8]
+    assert np.array_equal(got, single_8k(cuda_weights, scale=1.5,
+                                         device=cuda)(frame))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("s,rows,cols", _WINDOW_CASES)
 def test_cuda_windowed_pre_pass_equals_its_slice(cuda, s, rows, cols):
     from srcnn_cpp_tpu_torch.ops.cuda_resize import pre_upscale_fused

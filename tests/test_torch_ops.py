@@ -15,6 +15,8 @@ import torch
 
 from tests.conftest import GOLDEN
 
+REPO = GOLDEN.parent.parent
+
 
 def _t(a):
     return torch.from_numpy(np.ascontiguousarray(a))
@@ -62,6 +64,23 @@ def test_color_batched_planar():
                                            dtype=np.uint8)
     assert np.array_equal(bgr2ycrcb_u8_planar(_t(x)).numpy(),
                           np.asarray(jax_fwd(x)))
+
+
+@pytest.mark.parametrize("fwd", [True, False])
+def test_color_interleaved_matches_jax_and_planar(fwd):
+    # channels-last [..., 3]: bit-equal to JAX's pair and to the port's
+    # planar pair on the same pixels
+    import srcnn_cpp_tpu.ops.color as jax_color
+    import srcnn_cpp_tpu_torch.ops.color as color
+
+    name = "bgr2ycrcb_u8" if fwd else "ycrcb2bgr_u8"
+    x = np.random.default_rng(12 + fwd).integers(0, 256, (4, 17, 23, 3),
+                                                 dtype=np.uint8)
+    got = getattr(color, name)(_t(x))
+    assert got.dtype == torch.uint8 and got.shape == x.shape
+    assert np.array_equal(got.numpy(), np.asarray(getattr(jax_color, name)(x)))
+    planar = getattr(color, name + "_planar")(_t(x).permute(0, 3, 1, 2))
+    assert torch.equal(got, planar.permute(0, 2, 3, 1))
 
 
 def test_quantize_trunc_matches_jax():
@@ -163,6 +182,24 @@ def test_conv_image_copy_equals_original():
         assert np.array_equal(conv_image(buf, w, h, d), orig(buf, w, h, d))
     with pytest.raises(ValueError):
         conv_image(buf, w, h, 5)
+
+
+def test_sniff_format_copy_equals_original(tmp_path):
+    from srcnn_cpp_tpu.imageio import sniff_format as orig
+    from srcnn_cpp_tpu_torch.imageio import imwrite_bgr, sniff_format
+
+    img = np.random.default_rng(13).integers(0, 256, (9, 11, 3),
+                                             dtype=np.uint8)
+    for name in ("a.png", "a.jpg", "a.bmp"):
+        assert imwrite_bgr(tmp_path / name, img)
+    (tmp_path / "a.txt").write_bytes(b"not an image")
+    (tmp_path / "empty").write_bytes(b"")
+    want = {"a.png": "png", "a.jpg": "jpeg", "a.bmp": "bmp", "a.txt": None,
+            "empty": None, "missing": None}
+    for name, fmt in want.items():
+        assert sniff_format(tmp_path / name) == orig(tmp_path / name) == fmt
+    real = REPO / "tests/data/eval/butterfly.png"
+    assert sniff_format(real) == orig(real) == "png"
 
 
 def test_timer_copy_matches_original_and_syncs():

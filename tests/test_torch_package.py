@@ -37,6 +37,24 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+def test_package_root_exports_lazily():
+    # as the JAX package's root (srcnn_cpp_tpu/__init__.py:25-38); importing
+    # the package itself loads neither torch nor numpy
+    code = (
+        "import sys\n"
+        "import srcnn_cpp_tpu_torch as p\n"
+        "assert 'torch' not in sys.modules and 'numpy' not in sys.modules\n"
+        "from srcnn_cpp_tpu_torch.models import SRCNN\n"
+        "from srcnn_cpp_tpu_torch.weights import SRCNNWeights\n"
+        "assert p.SRCNN is SRCNN and p.SRCNNWeights is SRCNNWeights\n"
+        "assert isinstance(p.load_weights(), p.SRCNNWeights)\n"
+        "assert isinstance(p.SRCNN.from_weights(), p.SRCNN)\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, cwd=REPO, env=env, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
 def _w():
     from srcnn_cpp_tpu_torch.weights import load_weights
 

@@ -204,8 +204,14 @@ def test_pre_pass_halo_at_x2_and_refusals():
     h = pre_upscale_halos((64, 160), (128, 320), (2, 4, 1))
     assert h.top[:, 1:].min() == h.top.max() == 2
     assert h.bot[:, :-1].min() == h.bot.max() == 2
-    with pytest.raises(ValueError, match="not divisible"):
-        pre_upscale_halos((63, 160), (126, 320), (2, 4, 1))
+    # uneven: 63 rows split 16/16/16/15 and 126 output rows 32/32/31/31
+    # (tensor_split's cuts).  Block 2 ends its output at row 94, whose
+    # taps stop at source row 48: one row below its own
+    u = pre_upscale_halos((63, 160), (126, 320), (2, 4, 1))
+    assert u.rows_in == (0, 16, 32, 48, 63)
+    assert u.rows_out == (0, 32, 64, 95, 126)
+    assert u.top[:, :, 0].tolist() == [[0, 2, 2, 2]] * 2
+    assert u.bot[:, :, 0].tolist() == [[2, 2, 1, 0]] * 2
     with pytest.raises(ValueError, match="past one neighbour"):
         pre_upscale_halos((4, 160), (8, 320), (1, 4, 1))   # 1-row blocks
 
@@ -231,9 +237,13 @@ def test_merge_fused_rows_matches_jax(mesh, hw):
 
 # --- single_8k over a mesh -----------------------------------------------------
 
-@pytest.mark.parametrize("mesh,hw,scale", [((1, 4, 1), (48, 64), 2.0),
-                                           ((1, 2, 2), (40, 64), 1.5),
-                                           ((2, 2, 1), (24, 40), 2.0)])
+@pytest.mark.parametrize("mesh,hw,scale", [
+    ((1, 4, 1), (48, 64), 2.0), ((1, 2, 2), (40, 64), 1.5),
+    ((2, 2, 1), (24, 40), 2.0),
+    # uneven splits: rows or columns that the axis does not divide
+    ((1, 8, 1), (37, 26), 1.5),      # JAX's tests/test_configs.py:57-69
+    ((1, 2, 1), (1079, 64), 2.0), ((1, 1, 2), (64, 97), 2.0),
+    ((1, 2, 2), (61, 53), 0.75)])
 def test_single_8k_mesh_matches_unsharded(tweights, mesh, hw, scale):
     from srcnn_cpp_tpu_torch.configs import single_8k
 
@@ -242,6 +252,38 @@ def test_single_8k_mesh_matches_unsharded(tweights, mesh, hw, scale):
     want = single_8k(tweights, scale=scale, device="cpu")(frame)
     assert got.shape == want.shape and got.dtype == np.uint8
     assert np.array_equal(got, want)
+
+
+def test_single_8k_mesh_uneven_matches_jax(weights, tweights):
+    # the JAX runner serves 37x26 x1.5 over row 8 (it lets the partitioner
+    # pad); the port splits unevenly.  The pipeline bar of
+    # test_torch_pipeline.py: <=2 LSB, (diff > 1) on < 1e-5 of values (on
+    # this 6,435-value frame 52 values differ by 1: the split-precision
+    # bf16 conv of JAX's XLA path, as without a mesh)
+    from srcnn_cpp_tpu.configs import single_8k as jax_single_8k
+    from srcnn_cpp_tpu_torch.configs import single_8k
+
+    frame = np.random.default_rng(3).integers(0, 256, (37, 26, 3),
+                                              dtype=np.uint8)
+    got = single_8k(tweights, mesh=_mesh(1, 8), scale=1.5)(frame)
+    ref = jax_single_8k(weights, mesh=_jax_mesh(1, 8), scale=1.5,
+                        kernel="xla")(frame)
+    assert got.shape == ref.shape == (55, 39, 3)
+    d = np.abs(got.astype(int) - np.asarray(ref).astype(int))
+    assert d.max() <= 2, d.max()
+    assert (d > 1).mean() < 1e-5, (d > 1).mean()
+
+
+def test_distributed_stream_keeps_even_row_shares(tweights):
+    # single_8k splits unevenly; the multi-process stream still takes each
+    # process's even share of the rows, as the JAX stream does
+    from srcnn_cpp_tpu_torch.parallel.distributed import DistributedStream
+
+    stream = DistributedStream(2.0, _mesh(1, 4), weights=tweights)
+    with pytest.raises(ValueError, match="not divisible"):
+        stream.push_local(_u8((1, 3, 37, 26), 1))
+    assert stream.push_local(_u8((1, 3, 36, 26), 1)) is None
+    assert next(stream.drain()).shape == (1, 3, 72, 52)
 
 
 # --- the sharded train step ----------------------------------------------------
