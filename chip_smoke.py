@@ -4,14 +4,17 @@
     python3 chip_smoke.py
 
 Builds the five CUDA kernels of the port from ``srcnn_cpp_tpu_torch/csrc``
-(one nvcc per source, sm_90a), holds each against its plain PyTorch version
-on the card, and drives each path through the entry points a user calls,
-with the launch counts set to 0 just before and read just after:
+(one nvcc per source, sm_90a; phase 1 prints ptxas's registers and spills,
+the conv's setmaxnreg split, and fails on any spill), holds each against
+its plain PyTorch version on the card, and drives each path through the
+entry points a user calls, with the launch counts set to 0 just before and
+read just after:
 
 * phases 2-6, the main path: ``upscale_bgr_batch`` on 4 seeded 540x960
   frames at x2 (K2 pre-pass -> K1 conv -> K3 merge), checked against the
-  plain pipeline on the card and the reference binary's goldens, and timed
-  beside each kernel's bound;
+  plain pipeline on the card and the reference binary's goldens; two calls
+  with the default weights pack the conv weights once; timed beside each
+  kernel's bound, with K1's achieved TFLOP/s and MACs per output pixel;
 * phase 7, K4 ``srcnn_merge_fused`` (conv + merge in one kernel) on the
   main path's upscaled YCrCb batch: bit-equal to K1 -> K3;
 * phase 8, K5 ``srcnn_y_f32_fused`` (f32-output conv) on a 2160x3840
@@ -44,7 +47,7 @@ with the launch counts set to 0 just before and read just after:
 * phase 20, ``utils.profiling`` on the main path: ``throughput`` beside
   phase 6's CUDA-event rate, ``StageTimer`` over the H2D, device and D2H
   stages of ``upscale_bgr_batch``, and a ``trace`` that must name the
-  path's three kernels.
+  path's three kernels and show no device-to-host copy between K2 and K1.
 
 Any failure raises and the exit code is non-zero.  The last line of
 standard output is a JSON object ``{"ok": true, "device": {...}}``; the
@@ -222,8 +225,17 @@ def main() -> int:
         if "registers" in line or "spill" in line or "Compiling entry" in line \
                 or line.startswith("=="):
             say(f"  ptxas: {line.strip()}")
+        elif "wgmma" in line or "setmaxnreg" in line:
+            say(f"  ptxas: {line.strip()}")
     spilled = sum(int(n) for n in re.findall(r"(\d+) bytes spill", log))
     say(f"  ptxas: {spilled} bytes of spill stores and loads in all kernels")
+    from srcnn_cpp_tpu_torch.ops import cuda_srcnn
+    say(f"  conv (K1/K4/K5): {cuda_srcnn.CONSUMERS} consumer warpgroups at "
+        f"setmaxnreg {cuda_srcnn.REGS[0]}, the helper warpgroup at "
+        f"{cuda_srcnn.REGS[1]}, {cuda_srcnn.THREADS} threads, "
+        f"{cuda_srcnn.conv_smem_bytes()} bytes of shared memory")
+    if spilled:
+        raise AssertionError(f"ptxas spilled {spilled} bytes")
     runtime.library()
     weights = load_weights(device="cuda")
     max_err = {}
@@ -336,6 +348,17 @@ def main() -> int:
                 f"LSB, (diff>1) {(d > 1).mean():.2e}, PSNR {psnr:.2f} dB")
             if d.max() > 2 or (d > 1).mean() >= E2E_FRAC or psnr <= 55.0:
                 raise AssertionError(f"butterfly x{tag} golden gate failed")
+    # the default weights: loaded and moved once per process and device,
+    # so the conv's weights are packed once, not per call
+    packs = []
+    for _ in range(2):
+        cuda_srcnn._pack.calls = 0
+        upscale_bgr_batch(frames[:1], SCALE, None, device="cuda")
+        packs.append(cuda_srcnn._pack.calls)
+    say(f"  two upscale_bgr_batch calls with the default weights: packed "
+        f"the conv weights {packs[0]} + {packs[1]} times")
+    if sum(packs) > 1:
+        raise AssertionError("the default weights are packed per call")
 
     # phase 6: timings at the x2 geometry (CUDA events, medians)
     say(f"phase 6: timings, [{BATCH},3,{IH},{IW}] -> [{BATCH},3,{OH},{OW}], "
@@ -373,6 +396,13 @@ def main() -> int:
     for name in ms:
         say(f"  {name}: {ms[name]:.4f} ms, plain {plain_ms[name]:.4f} ms, "
             f"bound {bounds[name][0]:.4f} ms ({bounds[name][1]}) ({gpu})")
+    macs = cuda_srcnn.conv_macs(BATCH, OH, OW, runtime.num_sms())
+    plan = cuda_srcnn.conv_tile_plan(BATCH, OH, OW, runtime.num_sms())
+    say(f"  srcnn_y_fused: {2 * macs / (ms['srcnn_y_fused'] * 1e-3) / 1e12:.1f}"
+        f" TFLOP/s achieved of {TF32_FLOPS / 1e12:.0f} (dense TF32), "
+        f"{macs / npix:.0f} tensor-core MACs per output pixel ({CONV_MACS} "
+        f"in the bound); plan: {plan['tiles']} units of {plan['tile'][0]} "
+        f"rows x {plan['tile'][1]} columns on {plan['grid']} blocks ({gpu})")
     # H*W % 16 != 0: K3 runs one thread per pixel
     y_odd, up_odd = u8((BATCH, OH - 1, OW + 1), 47), \
         u8((BATCH, 3, OH - 1, OW + 1), 48)
@@ -1290,6 +1320,17 @@ def phase_profiling(e: Extra, frames: np.ndarray, event_mps: float) -> None:
         events = json.loads(path.read_text())["traceEvents"]
     found = {k: [ev for ev in events if k in ev.get("name", "")]
              for k in want}
+    # between K2 and K1 the main path moves nothing through the host
+    copies = []
+    if found["pre_pass_kernel"] and found["srcnn_conv_kernel"]:
+        k2 = found["pre_pass_kernel"][0]
+        k1 = found["srcnn_conv_kernel"][0]
+        copies = [ev["name"] for ev in events
+                  if ev.get("cat") == "gpu_memcpy"
+                  and k2["ts"] < ev.get("ts", -1) < k1["ts"]]
+    say(f"  trace(): device copies between K2 and K1: {copies or 'none'}")
+    if any("DtoH" in c for c in copies):
+        raise AssertionError("a device-to-host copy between K2 and K1")
     say(f"  trace(): {size} bytes of Chrome trace JSON, {len(events)} "
         f"events; " + "; ".join(
             f"{k}: {len(v)} event(s), {sum(ev.get('dur', 0) for ev in v):.1f}"

@@ -20,7 +20,7 @@ import torch
 
 from .pipeline import upscale_bgr, upscale_bgr_batch, weights_on
 from .stream import StreamUpscaler
-from .weights import SRCNNWeights, load_weights
+from .weights import SRCNNWeights
 
 def batch_1080p_to_4k(weights: SRCNNWeights | None = None, batch: int = 32,
                       device="cuda"):
@@ -67,7 +67,7 @@ def _single_8k_mesh(weights: SRCNNWeights | None, mesh, scale: float):
     from .ops.resize import scaled_size
     from .parallel.tiling import gather_blocks, split_blocks, upscale_blocks
 
-    weights = weights if weights is not None else load_weights()
+    weights = weights_on(weights, "cpu") if weights is None else weights
 
     def run(bgr: np.ndarray) -> np.ndarray:
         h, w = bgr.shape[:2]

@@ -53,7 +53,6 @@ from __future__ import annotations
 
 import functools
 import types
-import weakref
 from typing import NamedTuple
 
 import numpy as np
@@ -64,6 +63,7 @@ from ..ops.cuda_merge import merge_ycrcb_to_bgr_fused
 from ..ops.cuda_resize import PreWindow, pre_upscale_fused, window_source
 from ..ops.cuda_srcnn import srcnn_y_fused
 from ..ops.srcnn import fp32_strict
+from ..weights import weights_on
 from .mesh import Mesh
 
 __all__ = ["HALO", "split_blocks", "gather_blocks", "srcnn_blocks",
@@ -111,23 +111,6 @@ def gather_blocks(blocks: np.ndarray, dims=(0, -2, -1),
         torch.cat([torch.cat([blocks[d, r, c].to(device) for c in range(nc)],
                              dim=dims[2]) for r in range(nr)], dim=dims[1])
         for d in range(nd)], dim=dims[0])
-
-
-_MOVED: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
-
-
-def _weights_on(weights, device: torch.device):
-    """``weights`` on ``device``: itself where it lives there, else a copy
-    made once per device and kept while its tensors are unchanged (the
-    kernels' packed weights are cached per weights object)."""
-    if weights.device == device:
-        return weights
-    key = tuple((t.data_ptr(), t._version) for t in weights.as_dict().values())
-    per = _MOVED.setdefault(weights, {})
-    hit = per.get(device)
-    if hit is None or hit[0] != key:
-        hit = per[device] = (key, weights.to(device))
-    return hit[1]
 
 
 # --- halo exchange -------------------------------------------------------------
@@ -297,7 +280,7 @@ def srcnn_blocks(blocks: np.ndarray, weights, mesh: Mesh) -> np.ndarray:
     out = np.empty(blocks.shape, dtype=object)
     for q in mesh.local_blocks():
         _, h, w = blocks[q].shape
-        y = srcnn_y_fused(ext[q], _weights_on(weights, mesh.devices[q]))
+        y = srcnn_y_fused(ext[q], weights_on(weights, mesh.devices[q]))
         out[q] = y[:, lr[q]:lr[q] + h, lc[q]:lc[q] + w].contiguous()
     return out
 

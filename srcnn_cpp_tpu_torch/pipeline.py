@@ -25,7 +25,7 @@ from .ops.cuda_merge import merge_ycrcb_to_bgr_fused
 from .ops.cuda_resize import pre_upscale_fused
 from .ops.cuda_srcnn import srcnn_y_fused
 from .ops.resize import resize_bicubic_u8, scaled_size
-from .weights import SRCNNWeights, load_weights
+from .weights import SRCNNWeights, weights_on
 
 
 def upscale_planar(bgr_p: torch.Tensor, weights: SRCNNWeights,
@@ -35,12 +35,6 @@ def upscale_planar(bgr_p: torch.Tensor, weights: SRCNNWeights,
     up = pre_upscale_fused(bgr_p, out_hw)        # YCrCb [B, 3, oh, ow]
     y_sr = srcnn_y_fused(up[:, 0], weights)      # [B, oh, ow]
     return merge_ycrcb_to_bgr_fused(y_sr, up)
-
-
-def weights_on(weights: SRCNNWeights | None, device: torch.device):
-    """``weights`` (the pretrained checkpoint when None) on ``device``."""
-    w = weights if weights is not None else load_weights()
-    return w if w.device == device else w.to(device)
 
 
 def upscale_bgr_batch(bgr_u8, scale: float, weights: SRCNNWeights | None = None,

@@ -9,6 +9,7 @@ test_torch_models_ckpt.py`` holds the two equal).  It is read with NumPy.
 from __future__ import annotations
 
 import dataclasses
+import weakref
 from pathlib import Path
 from typing import Any, Mapping
 
@@ -103,3 +104,40 @@ def load_weights(path: Path | str | None = None, device="cpu") -> SRCNNWeights:
     is None) as float32 tensors."""
     with np.load(Path(path) if path is not None else weights_npz()) as z:
         return from_jax_params({k: z[k] for k in _KEYS}, device)
+
+
+_DEFAULT: dict = {}
+_MOVED: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
+
+
+def _canonical(device) -> torch.device:
+    """``device`` with its index: ``cuda`` names the current CUDA device."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def weights_on(weights: SRCNNWeights | None, device) -> SRCNNWeights:
+    """``weights`` (the pretrained checkpoint when None) on ``device``.
+
+    The checkpoint is loaded once per process and device.  Weights that
+    live on ``device`` (``cuda`` and ``cuda:<current>`` are one device)
+    come back as they are; others are copied once per device and the copy
+    is kept while their tensors are unchanged, so the kernels' packed
+    weights, cached per weights object, are built once.
+    """
+    device = _canonical(device)
+    if weights is None:
+        hit = _DEFAULT.get(device)
+        if hit is None:
+            hit = _DEFAULT[device] = load_weights(device=device)
+        return hit
+    if weights.device == device:
+        return weights
+    key = tuple((t.data_ptr(), t._version) for t in weights.as_dict().values())
+    per = _MOVED.setdefault(weights, {})
+    hit = per.get(device)
+    if hit is None or hit[0] != key:
+        hit = per[device] = (key, weights.to(device))
+    return hit[1]

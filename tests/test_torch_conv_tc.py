@@ -4,14 +4,20 @@ The CUDA kernels cannot run on the CPU, so these tests check what surrounds
 them in Python and their arithmetic by emulation:
 
 * a 3xTF32 emulation of ``csrc/srcnn_conv.cu`` that decodes the packed
-  weight buffer by the mma.sync m16n8k8 fragment layout (written out here
-  from the PTX definitions, not taken from the module), splits each A
-  operand as the kernel does and truncates every operand to tf32, is held
-  against the JAX package's ``srcnn_y`` / ``srcnn_y_f32`` (XLA, fp32) and
-  the Pallas ``srcnn_y_fused`` (interpret mode on the CPU).  Tolerances:
-  <=1 LSB on < 5e-3 of pixels, f32 within 1e-2 (chip_smoke.py's bars);
-* the conv tile plan: shared memory within one block's limit, every output
-  pixel covered exactly once, every conv1 read inside the window;
+  weight buffer by wgmma's K-major core-matrix layout through matrix
+  descriptors (written out here from the PTX ISA, not taken from the
+  module; the plane offsets and byte offsets are the CUDA source's),
+  splits each A operand as the kernel does and truncates every operand to
+  tf32, is held against the JAX package's ``srcnn_y`` / ``srcnn_y_f32``
+  (XLA, fp32) and the Pallas ``srcnn_y_fused`` (interpret mode on the
+  CPU).  Tolerances: <=1 LSB on < 5e-3 of pixels, f32 within 1e-2
+  (chip_smoke.py's bars);
+* the descriptors the module computes beside its layout, decoded by the
+  same reader, give back the weights; ``c_to_a_perm`` follows from wgmma's
+  A and D register fragments and the source's ``relu_split``;
+* the conv work plan: shared memory within one block's limit, every output
+  pixel covered exactly once, every conv1 read inside its window, m64
+  tiles of positions;
 * K2's window plan: every tap of ``cubic_tables`` inside its block's window
   at the seven scales of chip_smoke.py's phase 3, and a NumPy emulation of
   the kernel's three steps over that plan bit-equal to the plain version.
@@ -27,11 +33,13 @@ import torch
 REPO = Path(__file__).resolve().parent.parent
 CONV_CU = REPO / "srcnn_cpp_tpu_torch/csrc/srcnn_conv.cu"
 
-# mma.sync.m16n8k8 tf32 fragments, thread (g, t) = (lane // 4, lane % 4):
-# (row offset, column) of each register, from the PTX ISA's figures
+# wgmma .m64nNk8 tf32 A and .m64nN f32 D register fragments (PTX ISA,
+# "Register Fragments and Shared Memory Matrix Layouts"): warp w holds rows
+# 16w .. 16w+15; thread (g, t) = (lane // 4, lane % 4) of it holds (row
+# offset from 16w, column) of each register, per k8 step (A) and per n8
+# column block (D) -- within a warp's rows, mma.sync.m16n8k8's layouts
 A_FRAG = lambda t: [(0, t), (8, t), (0, t + 4), (8, t + 4)]            # noqa: E731
 C_FRAG = lambda t: [(0, 2 * t), (0, 2 * t + 1), (8, 2 * t), (8, 2 * t + 1)]  # noqa: E731
-B_FRAG = lambda t: [t, t + 4]         # k rows of b0, b1 (column n = g)  # noqa: E731
 
 
 def _u8(shape, seed):
@@ -71,24 +79,70 @@ def _perm_from_layouts():
     return perm
 
 
-def _decode(packed, off, k, n):
-    """Fragment-ordered hi/lo planes at float offset ``off`` -> [k][n]."""
-    blk = packed[off:off + k * n * 2].reshape(k // 8, n // 8, 32, 4)
-    hi, lo = np.zeros((k, n), np.float32), np.zeros((k, n), np.float32)
-    for lane in range(32):
-        g, t = divmod(lane, 4)
-        for r, kr in enumerate(B_FRAG(t)):
-            hi[kr::8, g::8] = blk[:, :, lane, r]
-            lo[kr::8, g::8] = blk[:, :, lane, 2 + r]
-    return hi, lo
+def desc_fields(d: int) -> dict:
+    """A wgmma matrix descriptor's fields (PTX ISA, "Matrix Descriptor
+    Format"): start address, leading and stride byte offsets (each stored
+    >> 4 in 14 bits), base offset (bits 49-51) and layout type (62-63)."""
+    return {"start": (d & 0x3FFF) << 4, "lbo": ((d >> 16) & 0x3FFF) << 4,
+            "sbo": ((d >> 32) & 0x3FFF) << 4, "base": (d >> 49) & 7,
+            "swizzle": d >> 62}
+
+
+def read_core_matrices(mem: np.ndarray, start: int, lbo: int, sbo: int,
+                       n: int) -> np.ndarray:
+    """The 8 x ``n`` tf32 B operand of one k8 step at shared byte address
+    ``start`` of ``mem`` (float32 words), K-major with no swizzle: core
+    matrices of 8 rows (n) x 16 bytes (4 k), rows 16 bytes apart; the core
+    matrix of k half ``kc`` and n-block ``nb`` starts at ``start + kc *
+    lbo + nb * sbo``."""
+    k = np.arange(8)[:, None]
+    col = np.arange(n)[None, :]
+    byte = (start + (k // 4) * lbo + (col // 8) * sbo + (col % 8) * 16
+            + (k % 4) * 4)
+    assert (byte % 4 == 0).all()
+    return mem[byte // 4]
+
+
+def read_b(mem: np.ndarray, d: int, n: int) -> np.ndarray:
+    """The B operand that descriptor ``d`` points at."""
+    f = desc_fields(d)
+    assert f["swizzle"] == 0 and f["base"] == 0
+    return read_core_matrices(mem, f["start"], f["lbo"], f["sbo"], n)
+
+
+def _source_layout() -> dict:
+    """The plane offsets and descriptor byte offsets as srcnn_conv.cu
+    states them."""
+    src = CONV_CU.read_text()
+    assert_block = src.split("static_assert(W1L_OFF ==")[1].split('"')[0]
+    offs = dict(re.findall(r"(\w+)_OFF == (\d+)", "W1L_OFF ==" + assert_block))
+    offs = {k: int(v) for k, v in offs.items()}
+    lbo, sbo = re.search(r"LBO = (\d+), SBO = (\d+)", src).groups()
+    return {"off": {"W1H": 0, **offs}, "lbo": int(lbo), "sbo": int(sbo)}
+
+
+def _decode(packed, off, k, n, lbo, sbo):
+    """A [k][n] tf32 plane at float offset ``off``, read k8 step by k8
+    step as the kernel's descriptors address it (a step of an N-column
+    plane is N x 8 floats further)."""
+    return np.concatenate([read_core_matrices(packed, 4 * off + s * n * 32,
+                                              lbo, sbo, n)
+                           for s in range(k // 8)])
 
 
 def _planes(packed):
     """The packed buffer as the kernel reads it (srcnn_conv.cu offsets)."""
     p = np.asarray(packed, np.float32)
-    return {"w1": _decode(p, 0, 88, 64), "b1": p[11264:11328],
-            "w2": _decode(p, 11328, 64, 32), "b2": p[15424:15456],
-            "w3": _decode(p, 15456, 32, 32), "b3": p[17504]}
+    lay = _source_layout()
+    o, lbo, sbo = lay["off"], lay["lbo"], lay["sbo"]
+
+    def pair(i, k, n):
+        return (_decode(p, o[f"W{i}H"], k, n, lbo, sbo),
+                _decode(p, o[f"W{i}L"], k, n, lbo, sbo))
+
+    return {"w1": pair(1, 88, 64), "b1": p[o["B1"]:o["B1"] + 64],
+            "w2": pair(2, 64, 32), "b2": p[o["B2"]:o["B2"] + 32],
+            "w3": pair(3, 32, 32), "b3": p[o["B3"]]}
 
 
 def _mask(x, bits):
@@ -213,6 +267,52 @@ def test_c_to_a_perm_is_the_fragment_map():
     assert _a_from_c() == [0, 2, 1, 3]
     assert c_to_a_perm() == _perm_from_layouts()
     assert sorted(c_to_a_perm()) == list(range(64))
+    # the source chains stages with the register layout named above: each
+    # stage's D block j becomes the next stage's k8 step j
+    src = CONV_CU.read_text()
+    assert "relu_split(acc1[j], ah[j], al[j])" in src
+    assert "relu_split(acc2[j], bh[j], bl[j])" in src
+
+
+def test_b_descriptors_decode_to_the_weights(tweights):
+    # every k8 step of every plane, through the module's descriptors and
+    # the PTX ISA reader above, at two shared-memory base addresses
+    from srcnn_cpp_tpu_torch.ops import cuda_srcnn as cs
+
+    p = cs.pack_weights(tweights).numpy()
+    perm = cs.c_to_a_perm()
+    w1 = np.zeros((88, 64), np.float32)
+    w1[:81] = tweights.conv1_w.numpy().reshape(64, 81).T
+    w3 = np.zeros((32, 32), np.float32)
+    w3[:, :25] = tweights.conv3_w.numpy().reshape(32, 25)[perm[:32]]
+    want = {"w1": w1, "w2": tweights.conv2_w.numpy().reshape(32, 64)[:, perm].T,
+            "w3": w3}
+    lay = _source_layout()
+    assert (cs.LBO, cs.SBO) == (lay["lbo"], lay["sbo"]) == (128, 256)
+    for base in (0, 4096):
+        mem = np.concatenate([np.zeros(base // 4, np.float32), p])
+        for name, m in want.items():
+            k, n = m.shape
+            hi, lo = cs.tf32_split(torch.from_numpy(np.ascontiguousarray(m)))
+            for half, ref in (("hi", hi.numpy()), ("lo", lo.numpy())):
+                off, pk, pn = cs.packed_layout()[f"{name}_{half}"]
+                assert (pk, pn) == (k, n)
+                assert 4 * off == 4 * lay["off"][f"W{name[1]}{half[0].upper()}"]
+                assert (4 * off) % 128 == 0      # descriptor start alignment
+                for s in range(k // 8):
+                    d = cs.b_descriptor(f"{name}_{half}", s, base)
+                    f = desc_fields(d)
+                    assert f["start"] == base + 4 * off + s * n * 32
+                    assert (f["lbo"], f["sbo"]) == (128, 256)
+                    assert np.array_equal(read_b(mem, d, n),
+                                          ref[8 * s:8 * s + 8])
+    for name, n in (("b1", 64), ("b2", 32)):
+        off, size = cs.packed_layout()[name]
+        src = getattr(tweights, f"conv{name[1]}_b").numpy()
+        assert size >= n and np.array_equal(p[off:off + n], src)
+    assert p[cs.packed_layout()["b3"][0]] == tweights.conv3_b.numpy()[0]
+    with pytest.raises(ValueError):
+        cs.b_descriptor("w3_hi", 4)
 
 
 def test_tf32_split_is_exact():
@@ -238,35 +338,77 @@ def test_conv_plan_mirrors_the_cuda_source():
 
     src = CONV_CU.read_text()
     assert f"static_assert(SMEM_BYTES == {cs.conv_smem_bytes()}," in src
-    assert (_constant("TH"), _constant("TW")) == cs.TILE
-    assert _constant("NTHREADS") == cs.THREADS
+    assert _constant("TW") == cs.STRIP
+    assert _constant("RIN") == cs.RING_IN and _constant("RP") == cs.RING_PART
+    assert _constant("NCONS") == cs.CONSUMERS
+    assert 128 * (cs.CONSUMERS + 1) == cs.THREADS
+    assert (_constant("CONS_REGS"), _constant("HELP_REGS")) == cs.REGS
+    assert cs.CONSUMERS * 128 * cs.REGS[0] + 128 * cs.REGS[1] <= 65536
     assert cs.conv_smem_bytes() <= cs.SMEM_LIMIT == 232_448
+    # one m64 wgmma tile per strip row: the strip and its 2-column halos
+    assert cs.POSITIONS == cs.STRIP + 4 and cs.POSITIONS % 64 == 0
+    assert "m64n64k8.f32.tf32.tf32" in src and "m64n32k8.f32.tf32.tf32" in src
+    assert "mma.sync" not in src
+    assert cs.POSITION_MACS == 2 * 88 * 64 + 3 * 64 * 32 + 3 * 32 * 32
 
 
 @pytest.mark.parametrize("b,h,w", [(1, 1, 1), (1, 3, 7), (1, 16, 8),
                                    (1, 17, 130), (3, 37, 29), (2, 1079, 1921),
                                    (4, 1080, 1920)])
 def test_conv_tile_plan_covers_every_pixel_once(b, h, w):
-    from srcnn_cpp_tpu_torch.ops.cuda_srcnn import (SMEM_LIMIT,
-                                                    conv_tile_origin,
-                                                    conv_tile_plan)
+    from srcnn_cpp_tpu_torch.ops.cuda_srcnn import (
+        POSITIONS, SMEM_LIMIT, WINDOW_COLS, conv_consumer_units, conv_f2_rows,
+        conv_tile_origin, conv_tile_plan)
 
     plan = conv_tile_plan(b, h, w, num_sms=132)
-    th, tw = plan["tile"]
-    assert plan["smem_bytes"] <= SMEM_LIMIT and plan["threads"] == 256
+    seg_h, tw = plan["tile"]
+    assert plan["smem_bytes"] <= SMEM_LIMIT and plan["threads"] == 384
     assert 1 <= plan["grid"] <= min(132, plan["tiles"])
     seen = np.zeros((b, h, w), np.int32)
+    walked = []
+    m = np.arange(POSITIONS)
     for k in range(plan["grid"]):          # block k's persistent walk
-        for tile in range(k, plan["tiles"], plan["grid"]):
-            f, oy0, ox0 = conv_tile_origin(tile, h, w)
-            assert 0 <= f < b and oy0 < h and ox0 < w
-            seen[f, oy0:oy0 + th, ox0:ox0 + tw] += 1
-            # every conv1 read of the tile's f2 halo lies in its window
-            rows = np.clip(oy0 - 2 + np.arange(th + 4), 0, h - 1) - oy0 + 2
-            cols = np.clip(ox0 - 2 + np.arange(tw + 4), 0, w - 1) - ox0 + 2
-            assert rows.min() >= 0 and rows.max() + 8 < th + 12
-            assert cols.min() >= 0 and cols.max() + 8 < tw + 12
+        for c in range(2):                 # its two consumer warpgroups
+            for tile in conv_consumer_units(plan, k, c):
+                walked.append(tile)
+                f, oy0, ox0 = conv_tile_origin(tile, h, w, seg_h)
+                assert 0 <= f < b and oy0 < h and ox0 < w
+                seen[f, oy0:oy0 + seg_h, ox0:ox0 + tw] += 1
+                # each output row's conv3 reach lies in the unit's f2 rows
+                lo, hi = conv_f2_rows(oy0, seg_h, h)
+                for oy in range(oy0, min(oy0 + seg_h, h)):
+                    reach = np.clip(oy + np.arange(-2, 3), 0, h - 1)
+                    assert lo <= reach.min() and reach.max() <= hi
+                # every conv1 read of a position lies in the window, and
+                # window column c holds input column clamp(ox0 - 6 + c)
+                fc = np.clip(ox0 - 2 + m, 0, w - 1)
+                base = fc - ox0 + 2
+                assert base.min() >= 0 and base.max() + 8 < WINDOW_COLS
+                for kx in range(9):
+                    assert np.array_equal(
+                        np.clip(ox0 - 6 + base + kx, 0, w - 1),
+                        np.clip(fc - 4 + kx, 0, w - 1))
+                # every output column's conv3 reach is among the positions
+                out = np.arange(ox0, min(ox0 + tw, w))
+                for dx in range(5):
+                    j = out - ox0 + dx
+                    assert j.max() < POSITIONS
+                    assert np.array_equal(fc[j], np.clip(out - 2 + dx, 0, w - 1))
+    assert sorted(walked) == list(range(plan["tiles"]))
     assert (seen == 1).all()
+
+
+def test_conv_plan_cuts_the_halo_at_the_main_geometry():
+    # [4,1080,1920] on 132 SMs: one unit per consumer, 540-row segments;
+    # 21,926 MACs per output pixel: 20,480 per f2 position times the
+    # strip's 64/60 column halo and the segments' 1,084/1,080 rows
+    from srcnn_cpp_tpu_torch.ops.cuda_srcnn import conv_macs, conv_tile_plan
+
+    plan = conv_tile_plan(4, 1080, 1920, 132)
+    assert plan["tile"] == (540, 60) and plan["tiles"] == 256
+    npix = 4 * 1080 * 1920
+    per_pixel = conv_macs(4, 1080, 1920, 132) / npix
+    assert 18_912 < per_pixel < 22_000
 
 
 # --- K2's window plan --------------------------------------------------------

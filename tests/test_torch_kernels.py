@@ -75,9 +75,10 @@ def test_srcnn_wrapper_counts_plain_calls_on_cpu(tweights):
 
 
 def test_pack_weights_layout(tweights):
-    # the 3xTF32 layout: hi/lo planes of w1 [88][64], w2 [64][32] and
-    # w3 [32][32] in mma.sync B-fragment order (lane (g, t) holds
-    # k = t, t+4 of column n = g of each k8 x n8 tile), biases in between
+    # the 3xTF32 layout: hi and lo planes of w1 [88][64], w2 [64][32] and
+    # w3 [32][32], each in wgmma's K-major core matrices (unswizzled: per
+    # k8 step, n-block and K half, 8 rows of n by 4 floats of k), biases in
+    # between
     from srcnn_cpp_tpu_torch.ops.cuda_srcnn import (PACKED_SIZE, c_to_a_perm,
                                                     pack_weights)
 
@@ -85,32 +86,27 @@ def test_pack_weights_layout(tweights):
     assert p.shape == (PACKED_SIZE,) and p.dtype == torch.float32
     assert pack_weights(tweights) is p              # cached per weights
 
-    def planes(off, k, n):
-        blk = p[off:off + k * n * 2].reshape(k // 8, n // 8, 32, 4)
-        hi, lo = torch.zeros((k, n)), torch.zeros((k, n))
-        for lane in range(32):
-            g, t = divmod(lane, 4)
-            for r, kr in enumerate((t, t + 4)):
-                hi[kr::8, g::8] = blk[:, :, lane, r]
-                lo[kr::8, g::8] = blk[:, :, lane, 2 + r]
-        return hi, lo
+    def plane(off, k, n):
+        blk = p[off:off + k * n].reshape(k // 8, n // 8, 2, 8, 4)
+        return blk.permute(0, 2, 4, 1, 3).reshape(k, n)   # (s,kc,k4),(nb,n8)
 
     perm = c_to_a_perm()
     want = {
-        0: (88, 64, torch.cat([tweights.conv1_w.reshape(64, 81).t(),
-                               torch.zeros((7, 64))])),
-        11328: (64, 32, tweights.conv2_w.reshape(32, 64)[:, perm].t()),
-        15456: (32, 32, torch.cat([tweights.conv3_w.reshape(32, 25)[perm[:32]],
-                                   torch.zeros((32, 7))], dim=1)),
+        (0, 5632): (88, 64, torch.cat([tweights.conv1_w.reshape(64, 81).t(),
+                                       torch.zeros((7, 64))])),
+        (11328, 13376): (64, 32, tweights.conv2_w.reshape(32, 64)[:, perm].t()),
+        (15456, 16480): (32, 32, torch.cat(
+            [tweights.conv3_w.reshape(32, 25)[perm[:32]],
+             torch.zeros((32, 7))], dim=1)),
     }
-    for off, (k, n, w) in want.items():
-        hi, lo = planes(off, k, n)
+    for (off_hi, off_lo), (k, n, w) in want.items():
+        hi, lo = plane(off_hi, k, n), plane(off_lo, k, n)
         assert not (hi.view(torch.int32) & 0x1FFF).any()   # low 13 bits clear
         rel = ((hi + lo - w).abs() / w.abs().clamp_min(1e-30)).max()
-        assert float(rel) <= 2.0 ** -21, (off, float(rel))
+        assert float(rel) <= 2.0 ** -21, (off_hi, float(rel))
         assert torch.equal(hi + lo, w)                  # exact in fp32
         assert not (hi[w == 0].any() or lo[w == 0].any())  # zero padding
-    assert not planes(0, 88, 64)[0][81:].any()          # K padded to 88
+    assert not plane(0, 88, 64)[81:].any()              # K padded to 88
     assert torch.equal(p[11264:11328], tweights.conv1_b)
     assert torch.equal(p[15424:15456], tweights.conv2_b)
     assert p[17504] == tweights.conv3_b[0] and not p[17505:].any()

@@ -138,3 +138,35 @@ def test_weights_match_jax_loader(weights):
     for k, v in w.as_dict().items():
         assert v.dtype == torch.float32
         assert np.array_equal(v.numpy(), np.asarray(getattr(weights, k)))
+
+
+def test_weights_on_keeps_the_object_and_loads_the_checkpoint_once():
+    from srcnn_cpp_tpu_torch.parallel import tiling
+    from srcnn_cpp_tpu_torch.pipeline import weights_on
+    from srcnn_cpp_tpu_torch.weights import load_weights
+
+    w = load_weights()
+    assert weights_on(w, "cpu") is w
+    assert weights_on(w, torch.device("cpu")) is w
+    default = weights_on(None, "cpu")
+    assert weights_on(None, "cpu") is default
+    assert weights_on(None, torch.device("cpu")) is default
+    assert torch.equal(default.conv1_w, w.conv1_w)
+    # one helper: the tiled K1 moves its weights the same way
+    assert tiling.weights_on is weights_on
+
+
+def test_host_array_calls_pack_the_default_weights_once():
+    # what a launch on the card packs (pack_weights, cached per weights
+    # object) is built once for the default checkpoint across calls
+    from srcnn_cpp_tpu_torch.ops import cuda_srcnn
+    from srcnn_cpp_tpu_torch.pipeline import upscale_bgr_batch, weights_on
+
+    frames = _u8((1, 12, 16, 3), 8)
+    first = upscale_bgr_batch(frames, 2.0, None, device="cpu")
+    calls = cuda_srcnn._pack.calls
+    packed = cuda_srcnn.pack_weights(weights_on(None, "cpu"))
+    assert cuda_srcnn.pack_weights(weights_on(None, "cpu")) is packed
+    assert cuda_srcnn._pack.calls <= calls + 1
+    assert np.array_equal(upscale_bgr_batch(frames, 2.0, None, device="cpu"),
+                          first)
