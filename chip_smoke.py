@@ -45,9 +45,15 @@ read just after:
   NCCL with one card per process where there are two cards); and
   ``scaling_efficiency`` as one card's tiling overhead (19);
 * phase 20, ``utils.profiling`` on the main path: ``throughput`` beside
-  phase 6's CUDA-event rate, ``StageTimer`` over the H2D, device and D2H
-  stages of ``upscale_bgr_batch``, and a ``trace`` that must name the
-  path's three kernels and show no device-to-host copy between K2 and K1.
+  phase 6's CUDA-event rate, ``StageTimer`` over the H2D, device, relayout
+  and D2H stages of ``upscale_bgr_batch``, in turns with the planar fetch
+  and host transpose it made before, and a ``trace`` that must name the
+  path's three kernels, show no device-to-host copy between K2 and K1 and
+  exactly one after K3, of the HWC result's bytes;
+* phase 21, ``upscale_bgr_batch`` with a CUDA tensor: a CUDA tensor out,
+  bit-equal to ``upscale_planar`` after the permute, one launch of each
+  kernel, no device-to-host copy in its trace; timed beside
+  ``upscale_planar``.
 
 Any failure raises and the exit code is non-zero.  The last line of
 standard output is a JSON object ``{"ok": true, "device": {...}}``; the
@@ -445,6 +451,7 @@ def main() -> int:
     phase_two_processes(extra)
     phase_scaling(extra)
     phase_profiling(extra, frames, mpix / (dev_ms / 1e3))
+    phase_device_entry(extra, frames)
 
     replaces = {
         "pre_upscale_fused": ("srcnn_cpp_tpu_torch/csrc/pre_pass.cu",
@@ -1270,12 +1277,41 @@ def phase_scaling(e: Extra) -> None:
             f"one block ({e.gpu})")
 
 
-def phase_profiling(e: Extra, frames: np.ndarray, event_mps: float) -> None:
+#: the main path's kernels, as ``torch.profiler`` names them at x2
+MAIN_KERNELS = ("pre_pass_kernel", "srcnn_conv_kernel", "merge_vec_kernel")
+MAIN_WRAPPERS = ("pre_upscale_fused", "srcnn_y_fused", "merge_ycrcb_to_bgr_fused")
+
+
+def trace_events(fn) -> tuple[int, list, dict]:
+    """``(bytes of trace JSON, its events, the events of each of
+    MAIN_KERNELS)`` of one ``utils.profiling.trace`` of ``fn()``; fails
+    unless the trace names every kernel of the main path."""
     import tempfile
 
+    from srcnn_cpp_tpu_torch.utils.profiling import trace
+
+    with tempfile.TemporaryDirectory() as tmp:
+        with trace(tmp) as logdir:
+            fn()
+        path = Path(logdir) / "trace.json"
+        size = path.stat().st_size
+        events = json.loads(path.read_text())["traceEvents"]
+    found = {k: [ev for ev in events if k in ev.get("name", "")]
+             for k in MAIN_KERNELS}
+    missing = [k for k, v in found.items() if not v]
+    if missing:
+        raise AssertionError(f"the trace names none of {missing}")
+    return size, events, found
+
+
+def d2h_copies(events: list) -> list:
+    return [ev for ev in events if ev.get("cat") == "gpu_memcpy"
+            and "DtoH" in ev.get("name", "")]
+
+
+def phase_profiling(e: Extra, frames: np.ndarray, event_mps: float) -> None:
     from srcnn_cpp_tpu_torch.pipeline import upscale_bgr_batch, upscale_planar
-    from srcnn_cpp_tpu_torch.utils.profiling import (StageTimer, throughput,
-                                                     trace)
+    from srcnn_cpp_tpu_torch.utils.profiling import StageTimer, throughput
 
     say(f"phase 20: utils.profiling on the main path, [{BATCH},3,{IH},{IW}] "
         f"x{SCALE:g}")
@@ -1286,58 +1322,108 @@ def phase_profiling(e: Extra, frames: np.ndarray, event_mps: float) -> None:
         f"calls, each fenced by a host fetch of its last output); CUDA "
         f"events, phase 6: {event_mps:.2f} MP/s ({e.gpu})")
 
-    def staged(timer: StageTimer) -> np.ndarray:
-        # upscale_bgr_batch's steps, one span each
+    def staged(timer: StageTimer, old: bool = False) -> np.ndarray:
+        # upscale_bgr_batch's steps on a host array, one span each; with
+        # ``old`` the planar fetch and host transpose it made before its
+        # output relayout moved to the card
         st = {}
         with timer.span("H2D", fetch=lambda: st["x"][:1, :1, :1, :1]):
             st["x"] = torch.from_numpy(np.ascontiguousarray(
                 np.moveaxis(frames, -1, 1))).to("cuda")
         with timer.span("device", fetch=lambda: st["y"][:1, :1, :1, :1]):
             st["y"] = upscale_planar(st["x"], w, (OH, OW))
+        if old:
+            with timer.span("D2H of planes"):
+                st["p"] = st["y"].cpu().numpy()
+            with timer.span("host transpose"):
+                return np.ascontiguousarray(np.moveaxis(st["p"], 1, -1))
+        with timer.span("relayout", fetch=lambda: st["o"][:1, :1, :1, :1]):
+            st["o"] = st["y"].permute(0, 2, 3, 1).contiguous()
         with timer.span("D2H"):
-            out = np.ascontiguousarray(np.moveaxis(st["y"].cpu().numpy(), 1,
-                                                   -1))
-        return out
+            return st["o"].cpu().numpy()
 
     staged(StageTimer())
-    timer = StageTimer()
+    staged(StageTimer(), old=True)
+    now, before = StageTimer(), StageTimer()
     out, _ = e.drive("StageTimer over upscale_bgr_batch's stages",
-                     lambda: staged(timer),
-                     ("pre_upscale_fused", "srcnn_y_fused",
-                      "merge_ycrcb_to_bgr_fused"))
-    if not np.array_equal(out, upscale_bgr_batch(frames, SCALE, w, "cuda")):
-        raise AssertionError("the staged call differs from upscale_bgr_batch")
-    for line in timer.report().splitlines():
-        say(f"  {line}")
-    say(f"  (StageTimer, one call, {e.gpu})")
+                     lambda: staged(now), MAIN_WRAPPERS)
+    outs = [out, staged(before, old=True), staged(before, old=True),
+            staged(now)]
+    ref = upscale_bgr_batch(frames, SCALE, w, "cuda")
+    if not all(np.array_equal(o, ref) for o in outs):
+        raise AssertionError("a staged call differs from upscale_bgr_batch")
+    for tag, timer in (("now", now), ("before (planar fetch, host "
+                                      "transpose)", before)):
+        total = sum(timer.spans.values())
+        say(f"  StageTimer, {tag}, per call (2 calls each, in turns): "
+            + ", ".join(f"{k} {v / 2:.3f} ms ({v / total:.1%})"
+                        for k, v in timer.spans.items())
+            + f"; total {total / 2:.3f} ms ({e.gpu})")
 
-    want = ("pre_pass_kernel", "srcnn_conv_kernel", "merge_vec_kernel")
-    with tempfile.TemporaryDirectory() as tmp:
-        with trace(tmp) as logdir:
-            upscale_bgr_batch(frames, SCALE, w, "cuda")
-        path = Path(logdir) / "trace.json"
-        size = path.stat().st_size
-        events = json.loads(path.read_text())["traceEvents"]
-    found = {k: [ev for ev in events if k in ev.get("name", "")]
-             for k in want}
+    size, events, found = trace_events(
+        lambda: upscale_bgr_batch(frames, SCALE, w, "cuda"))
     # between K2 and K1 the main path moves nothing through the host
-    copies = []
-    if found["pre_pass_kernel"] and found["srcnn_conv_kernel"]:
-        k2 = found["pre_pass_kernel"][0]
-        k1 = found["srcnn_conv_kernel"][0]
-        copies = [ev["name"] for ev in events
-                  if ev.get("cat") == "gpu_memcpy"
-                  and k2["ts"] < ev.get("ts", -1) < k1["ts"]]
+    k2 = found["pre_pass_kernel"][0]
+    k1 = found["srcnn_conv_kernel"][0]
+    copies = [ev["name"] for ev in events if ev.get("cat") == "gpu_memcpy"
+              and k2["ts"] < ev.get("ts", -1) < k1["ts"]]
     say(f"  trace(): device copies between K2 and K1: {copies or 'none'}")
     if any("DtoH" in c for c in copies):
         raise AssertionError("a device-to-host copy between K2 and K1")
+    # and after K3 it fetches the HWC result once, contiguous
+    k3 = found["merge_vec_kernel"][-1]
+    d2h = d2h_copies(events)
+    say("  trace(): device-to-host copies: " + (", ".join(
+        f"{ev['name']} of {ev.get('args', {}).get('bytes')} bytes, "
+        f"{'after' if ev['ts'] > k3['ts'] else 'before'} K3" for ev in d2h)
+        or "none"))
+    if len(d2h) != 1 or d2h[0]["ts"] <= k3["ts"] \
+            or d2h[0].get("args", {}).get("bytes") != BATCH * OH * OW * 3:
+        raise AssertionError(f"expected one device-to-host copy of "
+                             f"{BATCH * OH * OW * 3} bytes after K3")
     say(f"  trace(): {size} bytes of Chrome trace JSON, {len(events)} "
         f"events; " + "; ".join(
             f"{k}: {len(v)} event(s), {sum(ev.get('dur', 0) for ev in v):.1f}"
             f" us" for k, v in found.items()) + f" ({e.gpu})")
-    missing = [k for k, v in found.items() if not v]
-    if missing:
-        raise AssertionError(f"the trace names none of {missing}")
+
+
+def phase_device_entry(e: Extra, frames: np.ndarray) -> None:
+    from srcnn_cpp_tpu_torch.pipeline import upscale_bgr_batch, upscale_planar
+
+    say(f"phase 21: upscale_bgr_batch on a CUDA tensor [{BATCH},{IH},{IW},3]"
+        f" x{SCALE:g}: tensor in, tensor on the card out")
+    w = e.weights
+    xt = torch.from_numpy(frames).cuda()
+
+    def entry():
+        return upscale_bgr_batch(xt, SCALE, w, "cuda")
+
+    out, launches = e.drive("upscale_bgr_batch(CUDA tensor)", entry,
+                            MAIN_WRAPPERS)
+    if any(launches[n] != 1 for n in MAIN_WRAPPERS):
+        raise AssertionError("expected one launch of each of K2, K1, K3")
+    if not isinstance(out, torch.Tensor) or out.device.type != "cuda" \
+            or out.shape != (BATCH, OH, OW, 3) or out.dtype != torch.uint8:
+        raise AssertionError(f"expected a CUDA u8 tensor [{BATCH},{OH},{OW},"
+                             f"3], got {type(out).__name__} "
+                             f"{getattr(out, 'device', '')}")
+    ref = upscale_planar(xt.permute(0, 3, 1, 2).contiguous(), w,
+                         (OH, OW)).permute(0, 2, 3, 1)
+    assert_equal(out, ref, "vs upscale_planar(x.permute(0, 3, 1, 2)"
+                 ".contiguous()).permute(0, 2, 3, 1)")
+    _, events, _ = trace_events(entry)
+    d2h = d2h_copies(events)
+    say(f"  trace(): device-to-host copies: "
+        f"{[ev['name'] for ev in d2h] or 'none'}")
+    if d2h:
+        raise AssertionError("the CUDA-tensor call copied to the host")
+    entry_ms, planar_ms = ab_ms(entry, lambda: upscale_planar(e.x, w,
+                                                              (OH, OW)), 10)
+    mpix = BATCH * OH * OW / 1e6
+    say(f"  CUDA events, in turns: upscale_bgr_batch(CUDA tensor) "
+        f"{entry_ms:.4f} ms, {mpix / (entry_ms / 1e3):.2f} MP/s; "
+        f"upscale_planar {planar_ms:.4f} ms, {mpix / (planar_ms / 1e3):.2f} "
+        f"MP/s ({e.gpu})")
 
 
 if __name__ == "__main__":

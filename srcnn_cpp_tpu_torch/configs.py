@@ -25,16 +25,21 @@ from .weights import SRCNNWeights
 def batch_1080p_to_4k(weights: SRCNNWeights | None = None, batch: int = 32,
                       device="cuda"):
     """Runner: BGR uint8 ``[B, H, W, 3]`` -> x2, in chunks of ``batch``
-    frames per dispatch (frames of one chunk share one launch per kernel)."""
+    frames per dispatch (frames of one chunk share one launch per kernel).
+    A tensor batch comes back as one tensor on ``device``, its chunks
+    joined there; a host array as one host array."""
     device = torch.device(device)
     weights = weights_on(weights, device)
 
-    def run(frames: np.ndarray) -> np.ndarray:
+    def run(frames):
         if frames.ndim != 4:
             raise ValueError(f"expected [B, H, W, 3], got {frames.shape}")
         outs = [upscale_bgr_batch(frames[i:i + batch], 2.0, weights, device)
                 for i in range(0, len(frames), batch)]
-        return outs[0] if len(outs) == 1 else np.concatenate(outs)
+        if len(outs) == 1:
+            return outs[0]
+        return (torch.cat(outs) if isinstance(frames, torch.Tensor)
+                else np.concatenate(outs))
 
     run.batch = batch
     return run
@@ -42,7 +47,9 @@ def batch_1080p_to_4k(weights: SRCNNWeights | None = None, batch: int = 32,
 
 def single_8k(weights: SRCNNWeights | None = None, mesh=None,
               scale: float = 2.0, device="cuda"):
-    """Runner: one huge BGR frame ``[H, W, 3]`` -> ``scale``, on ``device``.
+    """Runner: one huge BGR frame ``[H, W, 3]`` -> ``scale``, on ``device``
+    (without ``mesh``: tensor in, tensor on ``device`` out; array in, array
+    out).
 
     With ``mesh`` (:func:`.parallel.make_mesh`; ``device`` is then unused)
     each block's input rows go to its device, and windowed K2, K1 and K3
@@ -57,7 +64,7 @@ def single_8k(weights: SRCNNWeights | None = None, mesh=None,
     device = torch.device(device)
     weights = weights_on(weights, device)
 
-    def run(bgr: np.ndarray) -> np.ndarray:
+    def run(bgr):
         return upscale_bgr(bgr, scale, weights, device)
 
     return run
@@ -72,6 +79,7 @@ def _single_8k_mesh(weights: SRCNNWeights | None, mesh, scale: float):
     def run(bgr: np.ndarray) -> np.ndarray:
         h, w = bgr.shape[:2]
         ow, oh = scaled_size(w, h, scale)
+        # a host transpose, as the JAX runner's (srcnn_cpp_tpu/configs.py:125)
         planar = torch.from_numpy(np.ascontiguousarray(
             np.moveaxis(np.asarray(bgr, dtype=np.uint8), -1, 0)))[None]
         out = upscale_blocks(split_blocks(planar, mesh), weights, (h, w),

@@ -11,8 +11,10 @@ events, the conv K1 (``srcnn_y_fused``), the pre-pass K2
 and the device-resident pipeline (``upscale_planar``) of both, and K3 on
 4 seeded [1079,1921] planes (H*W % 16 != 0), in turns (parent, change,
 change, parent) for ``--rounds`` rounds; K2 and both K3 cases also from
-CUDA graph replays.  Before timing it checks that both give the same K2
-and K3 outputs and K1 outputs within 1 LSB of each other, and it profiles
+CUDA graph replays; the host-array entry (``upscale_bgr_batch`` on the
+same frames as a host array, host clock per call).  Before timing it
+checks that both give the same K2 and K3 outputs, K1 outputs within 1 LSB
+of each other and host-array outputs within 2 LSB, and it profiles
 20 calls of each pipeline and of the odd-plane K3 (``torch.profiler``:
 device time by kernel, busy share of the span).  Prints one line per round
 and a JSON summary (medians over the rounds, the profiles, the card's name
@@ -68,6 +70,19 @@ def _median_ms(fn, reps: int) -> float:
         t1.record()
         torch.cuda.synchronize()
         times.append(t0.elapsed_time(t1) / inner)
+    return statistics.median(times)
+
+
+def _host_ms(fn, reps: int) -> float:
+    """Median host-clock time of one call of ``fn`` that ends in a host
+    fetch (a call that returns a host array), after a warm-up."""
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
 
 
@@ -170,6 +185,8 @@ def main(argv=None) -> int:
     rng = np.random.default_rng(0)
     x = torch.from_numpy(rng.integers(0, 256, (4, 3, 540, 960),
                                       dtype=np.uint8)).cuda()
+    frames = np.ascontiguousarray(np.moveaxis(x.cpu().numpy(), 1, -1))
+    host = "upscale_bgr_batch (host arrays)"
     hw = (1080, 1920)
     # K3 on planes with H*W % 16 != 0 (odd sizes from the CLI and the eval
     # harness), beside the main geometry
@@ -197,6 +214,8 @@ def main(argv=None) -> int:
             k3_odd: (lambda f=merge: f(y_odd, up_odd)),
             "upscale_planar": (lambda m=m, w=w:
                                m["pipeline"].upscale_planar(x, w, hw)),
+            host: (lambda m=m, w=w:
+                   m["pipeline"].upscale_bgr_batch(frames, 2.0, w, "cuda")),
         }
     if not torch.equal(ups["parent"], ups["change"]):
         raise AssertionError("K2 outputs differ between the two trees")
@@ -212,8 +231,15 @@ def main(argv=None) -> int:
           f"{float((d > 0).float().mean()):.2e}", flush=True)
     if int(d.max()) > 1:
         raise AssertionError("K1 outputs differ by more than 1 LSB")
+    d = np.abs(fns["parent"][host]().astype(np.int32)
+               - fns["change"][host]().astype(np.int32))
+    print(f"{host} parent vs change: max {int(d.max())} LSB, differing "
+          f"{float((d > 0).mean()):.2e}", flush=True)
+    if int(d.max()) > 2:
+        raise AssertionError(f"{host}: outputs differ by more than 2 LSB")
 
-    timed = [(name, "", _median_ms) for name in fns["change"]]
+    timed = [(name, "", _host_ms if name == host else _median_ms)
+             for name in fns["change"]]
     timed += [(name, " (graph)", graph_ms) for name in graphed]
     rounds = []
     for r in range(args.rounds):

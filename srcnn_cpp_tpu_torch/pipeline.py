@@ -11,9 +11,12 @@ stack (:mod:`.ops.cuda_srcnn`) and K3 the post-pass (:mod:`.ops.cuda_merge`).
 On a CUDA device each wrapper launches its kernel; on the CPU each runs its
 plain PyTorch version.  There is one path per device and no fallback.
 
-Device tensors are planar ``[B, 3, H, W]`` u8, as in the JAX package; the
-host transposes HWC <-> planar around the device span.  Image decode and
-encode stay on the host (srcnn.cpp:462,670).
+Device tensors are planar ``[B, 3, H, W]`` u8, as in the JAX package.  The
+HWC entry points relayout on the device: a tensor input becomes planar
+there (a host array is transposed on the host before its one copy in, as
+the JAX package does), and the planar result becomes HWC there, so a
+host-array caller pays one contiguous fetch.  Image decode and encode stay
+on the host (srcnn.cpp:462,670).
 """
 
 from __future__ import annotations
@@ -38,28 +41,45 @@ def upscale_planar(bgr_p: torch.Tensor, weights: SRCNNWeights,
 
 
 def upscale_bgr_batch(bgr_u8, scale: float, weights: SRCNNWeights | None = None,
-                      device="cuda") -> np.ndarray:
+                      device="cuda"):
     """Super-resolve a batch ``[B, H, W, 3]`` of BGR uint8 frames on
-    ``device``; returns a host array ``[B, oh, ow, 3]``.
+    ``device`` into ``[B, oh, ow, 3]``.
+
+    Tensor in, tensor on ``device`` out; array in, array out.  A
+    ``torch.Tensor`` (any strides) goes to ``device`` (no copy when it is
+    there already) and becomes planar there; its result is returned on
+    ``device``, unfetched.  A host array is transposed on the host and
+    copied in; its result comes back as one C-contiguous host array.
 
     Output dims are ``floor(float32(dim) * float32(scale))``, matching the
     reference (srcnn.cpp:573-575).
     """
     device = torch.device(device)
-    bgr = np.asarray(bgr_u8, dtype=np.uint8)
-    h, w = bgr.shape[1:3]
+    if isinstance(bgr_u8, torch.Tensor):
+        if bgr_u8.dtype != torch.uint8:
+            raise TypeError(f"expected a uint8 tensor, got {bgr_u8.dtype}")
+        planar = bgr_u8.to(device).permute(0, 3, 1, 2).contiguous()
+    else:
+        bgr = np.asarray(bgr_u8, dtype=np.uint8)
+        planar = torch.from_numpy(np.ascontiguousarray(
+            np.moveaxis(bgr, -1, 1))).to(device)
+    h, w = planar.shape[2:]
     ow, oh = scaled_size(w, h, scale)
-    planar = torch.from_numpy(np.ascontiguousarray(np.moveaxis(bgr, -1, 1)))
-    out = upscale_planar(planar.to(device), weights_on(weights, device),
-                         (oh, ow))
-    return np.ascontiguousarray(np.moveaxis(out.cpu().numpy(), 1, -1))
+    out = upscale_planar(planar, weights_on(weights, device), (oh, ow))
+    out = out.permute(0, 2, 3, 1).contiguous()
+    return out if isinstance(bgr_u8, torch.Tensor) else out.cpu().numpy()
 
 
 def upscale_bgr(bgr_u8, scale: float, weights: SRCNNWeights | None = None,
-                device="cuda") -> np.ndarray:
-    """Super-resolve one BGR uint8 image ``[H, W, 3]`` by ``scale``."""
-    return upscale_bgr_batch(np.asarray(bgr_u8)[None], scale, weights,
-                             device)[0]
+                device="cuda"):
+    """Super-resolve one BGR uint8 image ``[H, W, 3]`` by ``scale``.
+
+    Tensor in, tensor on ``device`` out; array in, array out
+    (:func:`upscale_bgr_batch`).
+    """
+    batch = (bgr_u8[None] if isinstance(bgr_u8, torch.Tensor)
+             else np.asarray(bgr_u8)[None])
+    return upscale_bgr_batch(batch, scale, weights, device)[0]
 
 
 def process_srcnn(buf, w: int, h: int, d: int, scale: float,

@@ -318,6 +318,37 @@ def test_cuda_pipeline_runs_the_kernels(cuda, cuda_weights):
     assert d.max() <= 2 and (d > 1).mean() < 1e-5
 
 
+@pytest.mark.cuda
+def test_cuda_tensor_in_tensor_out(cuda, cuda_weights):
+    # a frame batch on the card stays there: relayout in and out on the
+    # card, one launch of each kernel, the HWC result returned unfetched
+    from srcnn_cpp_tpu_torch.ops.cuda_merge import merge_ycrcb_to_bgr_fused
+    from srcnn_cpp_tpu_torch.ops.cuda_resize import pre_upscale_fused
+    from srcnn_cpp_tpu_torch.ops.cuda_srcnn import srcnn_y_fused
+    from srcnn_cpp_tpu_torch.pipeline import upscale_bgr_batch, upscale_planar
+
+    frames = _u8((2, 40, 136, 3), 6)
+    x = _dev(frames, cuda)
+    wrappers = (pre_upscale_fused, srcnn_y_fused, merge_ycrcb_to_bgr_fused)
+    counts = [f.launches for f in wrappers]
+    out = upscale_bgr_batch(x, 2.0, cuda_weights, device=cuda)
+    assert [f.launches for f in wrappers] == [c + 1 for c in counts]
+    assert isinstance(out, torch.Tensor) and out.device.type == "cuda"
+    assert out.shape == (2, 80, 272, 3) and out.is_contiguous()
+    ref = upscale_planar(x.permute(0, 3, 1, 2).contiguous(), cuda_weights,
+                         (80, 272)).permute(0, 2, 3, 1)
+    assert torch.equal(out, ref)
+    # a host array on the card: one contiguous host array, within the bar
+    # of the plain path on the CPU
+    got = upscale_bgr_batch(frames, 2.0, cuda_weights, device=cuda)
+    assert isinstance(got, np.ndarray) and got.flags.c_contiguous
+    assert np.array_equal(got, out.cpu().numpy())
+    plain = upscale_bgr_batch(frames, 2.0, cuda_weights.to("cpu"),
+                              device="cpu")
+    d = np.abs(got.astype(int) - plain.astype(int))
+    assert d.max() <= 2 and (d > 1).mean() < 1e-5
+
+
 # --- the tiled callers (parallel/tiling.py) -----------------------------------
 
 def _window_of(x, out_hw, rows, cols):

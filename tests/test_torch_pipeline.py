@@ -170,3 +170,86 @@ def test_host_array_calls_pack_the_default_weights_once():
     assert cuda_srcnn._pack.calls <= calls + 1
     assert np.array_equal(upscale_bgr_batch(frames, 2.0, None, device="cpu"),
                           first)
+
+
+# --- the HWC entry points: tensor in, tensor out; array in, array out --------
+
+_SHAPES = [((2, 33, 47, 3), 2.0), ((1, 41, 67, 3), 1.5), ((3, 20, 24, 3), 0.75)]
+
+
+@pytest.mark.parametrize("shape,scale", _SHAPES)
+def test_tensor_input_returns_a_tensor_like_jax_device_arrays(weights, shape,
+                                                              scale):
+    # the JAX entry point relayouts a device array on the device and
+    # returns a device array; the port does the same with a tensor
+    import jax
+    import jax.numpy as jnp
+    from srcnn_cpp_tpu.pipeline import upscale_bgr_batch as jax_batch
+    from srcnn_cpp_tpu_torch.ops.resize import scaled_size
+    from srcnn_cpp_tpu_torch.pipeline import upscale_bgr_batch
+    from srcnn_cpp_tpu_torch.weights import from_jax_params
+
+    tw = from_jax_params(weights)
+    frames = _u8(shape, int(10 * scale) + shape[1])
+    got = upscale_bgr_batch(torch.from_numpy(frames), scale, tw, device="cpu")
+    ow, oh = scaled_size(shape[2], shape[1], scale)
+    assert isinstance(got, torch.Tensor) and got.device.type == "cpu"
+    assert got.dtype == torch.uint8 and got.shape == (shape[0], oh, ow, 3)
+    assert np.array_equal(got.numpy(),
+                          upscale_bgr_batch(frames, scale, tw, device="cpu"))
+    ref = jax_batch(jnp.asarray(frames), scale, weights, kernel="xla",
+                    resize="exact")
+    assert isinstance(ref, jax.Array)
+    _assert_close_bgr(got.numpy(), np.asarray(ref))
+
+
+def test_non_contiguous_tensor_inputs():
+    from srcnn_cpp_tpu_torch.pipeline import upscale_bgr_batch
+
+    planar = torch.from_numpy(_u8((2, 3, 18, 26), 11))
+    hwc = planar.permute(0, 2, 3, 1)                 # an HWC view of planes
+    assert not hwc.is_contiguous()
+    assert torch.equal(upscale_bgr_batch(hwc, 2.0, device="cpu"),
+                       upscale_bgr_batch(hwc.contiguous(), 2.0, device="cpu"))
+    big = torch.from_numpy(_u8((3, 40, 60, 3), 12))
+    sl = big[::2, 3:37:2, 1::3]                      # a strided slice
+    assert not sl.is_contiguous()
+    assert torch.equal(upscale_bgr_batch(sl, 1.5, device="cpu"),
+                       upscale_bgr_batch(sl.contiguous(), 1.5, device="cpu"))
+
+
+def test_array_input_returns_one_contiguous_array(weights):
+    # the same values as the host transposes on both sides gave
+    from srcnn_cpp_tpu_torch.pipeline import upscale_bgr_batch, upscale_planar
+    from srcnn_cpp_tpu_torch.weights import from_jax_params
+
+    tw = from_jax_params(weights)
+    frames = _u8((2, 21, 35, 3), 13)
+    got = upscale_bgr_batch(frames, 2.0, tw, device="cpu")
+    assert isinstance(got, np.ndarray) and got.flags.c_contiguous
+    planar = torch.from_numpy(np.ascontiguousarray(np.moveaxis(frames, -1, 1)))
+    before = np.moveaxis(upscale_planar(planar, tw, (42, 70)).numpy(), 1, -1)
+    assert got.dtype == np.uint8 and np.array_equal(got, before)
+
+
+def test_upscale_bgr_takes_one_tensor_image():
+    from srcnn_cpp_tpu_torch.pipeline import upscale_bgr
+
+    img = _u8((19, 23, 3), 14)
+    got = upscale_bgr(torch.from_numpy(img), 2.0, device="cpu")
+    assert isinstance(got, torch.Tensor) and got.shape == (38, 46, 3)
+    assert np.array_equal(got.numpy(), upscale_bgr(img, 2.0, device="cpu"))
+    with pytest.raises(TypeError):
+        upscale_bgr(torch.from_numpy(img).float(), 2.0, device="cpu")
+
+
+def test_batch_1080p_to_4k_joins_tensor_chunks():
+    from srcnn_cpp_tpu_torch import configs
+
+    frames = _u8((5, 12, 20, 3), 15)
+    run = configs.batch_1080p_to_4k(batch=2, device="cpu")
+    got = run(torch.from_numpy(frames))
+    assert isinstance(got, torch.Tensor) and got.shape == (5, 24, 40, 3)
+    ref = run(frames)
+    assert isinstance(ref, np.ndarray)
+    assert np.array_equal(got.numpy(), ref)
