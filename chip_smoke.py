@@ -53,7 +53,26 @@ read just after:
 * phase 21, ``upscale_bgr_batch`` with a CUDA tensor: a CUDA tensor out,
   bit-equal to ``upscale_planar`` after the permute, one launch of each
   kernel, no device-to-host copy in its trace; timed beside
-  ``upscale_planar``.
+  ``upscale_planar``;
+* phase 22, ``StreamUpscaler(2.0, batch=4, depth=3)`` fed 12 seeded
+  1080x1920 frames as CUDA tensors: host arrays out, bit-equal to the same
+  frames pushed as host arrays and in order, K2, K1 and K3 three times
+  each, no host-to-device copy in the trace of one dispatch; its fps in
+  turns with the host-array feed over the frames cycled to 96 (the ring
+  wraps 6 times), beside phase 10's ``run_synthetic``;
+* phase 23, ``single_8k(mesh=...)`` on a CUDA tensor (2160x3840 x2 over
+  row 4, 1080x1920 x1.5 over row 8, the cuda:0 mesh): a CUDA tensor out,
+  bit-equal to the host-array call and to ``single_8k()`` on the tensor,
+  each kernel once per block, no frame or block bytes between host and
+  card in its trace (a host-to-device copy may only be of a weight
+  tensor); its CUDA-event time beside the host-array call's;
+* phase 24, ``process_srcnn`` on the card: ``tests/data/eval/butterfly.png``
+  x2 at d = 1 (its Y plane), 2 (RGB565), 3 (RGB) and 4 (RGB and a seeded
+  alpha): bit-equal to the same composition of the port's card path, the
+  golden gate against the port's CPU run (<=1 LSB at d = 1), the alpha
+  plane bit-equal, K1 once at d = 1 and K2, K1, K3 once each otherwise.
+
+Each phase from 7 on prints its wall time.
 
 Any failure raises and the exit code is non-zero.  The last line of
 standard output is a JSON object ``{"ok": true, "device": {...}}``; the
@@ -436,22 +455,26 @@ def main() -> int:
         f"{mpix / (host_ms / 1e3):.2f} MP/s ({gpu})")
 
     extra = Extra(gpu, weights, x, up)
-    phase_k4(extra, launches, max_err)
-    phase_k5(extra, launches, max_err)
-    phase_eval(extra)
-    phase_stream(extra)
-    phase_single_8k(extra)
-    phase_timings(extra, ms, plain_ms, bounds)
-    phase_train(extra)
-    phase_tiled_k1(extra)
-    phase_tiled_k2_k3(extra)
-    phase_single_8k_mesh(extra)
-    phase_single_8k_uneven(extra)
-    phase_sharded_train(extra)
-    phase_two_processes(extra)
-    phase_scaling(extra)
-    phase_profiling(extra, frames, mpix / (dev_ms / 1e3))
-    phase_device_entry(extra, frames)
+    timed(phase_k4, extra, launches, max_err)
+    timed(phase_k5, extra, launches, max_err)
+    timed(phase_eval, extra)
+    synthetic_fps = timed(phase_stream, extra)
+    timed(phase_single_8k, extra)
+    timed(phase_timings, extra, ms, plain_ms, bounds)
+    timed(phase_train, extra)
+    timed(phase_tiled_k1, extra)
+    timed(phase_tiled_k2_k3, extra)
+    mesh_host_ms = timed(phase_single_8k_mesh, extra)
+    uneven_host_ms = timed(phase_single_8k_uneven, extra)
+    timed(phase_sharded_train, extra)
+    timed(phase_two_processes, extra)
+    timed(phase_scaling, extra)
+    timed(phase_profiling, extra, frames, mpix / (dev_ms / 1e3))
+    timed(phase_device_entry, extra, frames)
+    timed(phase_stream_tensors, extra, synthetic_fps)
+    timed(phase_single_8k_mesh_tensor, extra,
+          {**mesh_host_ms, **uneven_host_ms})
+    timed(phase_process_srcnn, extra)
 
     replaces = {
         "pre_upscale_fused": ("srcnn_cpp_tpu_torch/csrc/pre_pass.cu",
@@ -478,6 +501,14 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def timed(phase, *args):
+    """Run ``phase(*args)``, print its wall time and return its result."""
+    t0 = time.perf_counter()
+    result = phase(*args)
+    say(f"  ({phase.__name__}: {time.perf_counter() - t0:.1f} s wall)")
+    return result
 
 
 class Extra:
@@ -638,7 +669,7 @@ def phase_eval(e: Extra) -> None:
         f"{EVAL_SSIM} SSIM")
 
 
-def phase_stream(e: Extra) -> None:
+def phase_stream(e: Extra) -> float:
     from srcnn_cpp_tpu_torch.pipeline import upscale_bgr_batch
     from srcnn_cpp_tpu_torch.stream import (StreamUpscaler, run_synthetic,
                                             run_synthetic_device)
@@ -674,6 +705,7 @@ def phase_stream(e: Extra) -> None:
         ("pre_upscale_fused", "srcnn_y_fused", "merge_ycrcb_to_bgr_fused"))
     say(f"  run_synthetic 1920x1080 x2, batch 4, depth 3: {r['frames']} "
         f"frames, {r['fps']:.2f} fps, {r['mps']:.2f} MP/s ({e.gpu})")
+    return r["fps"]
 
 
 def phase_single_8k(e: Extra) -> None:
@@ -1020,13 +1052,14 @@ def phase_tiled_k2_k3(e: Extra) -> None:
 
 
 def mesh_run(e: Extra, frame: np.ndarray, scale: float, mesh, name: str,
-             over: str) -> None:
+             over: str) -> dict:
     """``single_8k(mesh=...)`` against ``single_8k()`` on ``frame``.  Each
     is driven with the counts at 0: one launch of each of K2, K1 and K3 per
     block (one in all untiled), no plain call, the results bit-equal.  Then
     their times: host arrays in and out (median of 5), the device span of
     the planar pipeline against its blocks' (CUDA events, median of 10) and
-    the profiler's device work, busy share and activities (5 calls)."""
+    the profiler's device work, busy share and activities (5 calls).
+    Returns the host-array medians in ms, by run name."""
     from srcnn_cpp_tpu_torch.configs import single_8k
     from srcnn_cpp_tpu_torch.kernel_ab import profile
     from srcnn_cpp_tpu_torch.ops.resize import scaled_size
@@ -1084,15 +1117,17 @@ def mesh_run(e: Extra, frame: np.ndarray, scale: float, mesh, name: str,
     say(f"  tiling over {over} on one card: device span "
         f"{dev[name] / dev['unsharded'] - 1:+.2%}, host arrays "
         f"{host[name] / host['unsharded'] - 1:+.2%}")
+    return host
 
 
-def phase_single_8k_mesh(e: Extra) -> None:
+def phase_single_8k_mesh(e: Extra) -> dict:
     (h, w), (oh, ow) = FRAME_8K, (2 * FRAME_8K[0], 2 * FRAME_8K[1])
     say(f"phase 16: configs.single_8k(mesh=row 4 over cuda:0) {h}x{w} -> "
         f"{oh}x{ow} vs single_8k(), bit-equal")
     mesh = mesh_of(4, data=1, row=4)
     frame = e.rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
-    mesh_run(e, frame, 2.0, mesh, "row 4", "4 row blocks")
+    host = mesh_run(e, frame, 2.0, mesh, "row 4", "4 row blocks")
+    return {(FRAME_8K, 2.0, (1, 4, 1)): host["row 4"]}
 
 
 #: phase 16b's uneven splits: frame (H, W), scale, mesh (data, row, col)
@@ -1101,12 +1136,13 @@ UNEVEN = (((2160, 3840), 1.25, (1, 8, 1)),    # 2,700 output rows over 8
           ((768, 1366), 1.5, (1, 2, 2)))      # 2,049 output columns over 2
 
 
-def phase_single_8k_uneven(e: Extra) -> None:
+def phase_single_8k_uneven(e: Extra) -> dict:
     from srcnn_cpp_tpu_torch.ops.resize import scaled_size
 
     say("phase 16b: configs.single_8k(mesh=...) over cuda:0 where the mesh "
         "does not divide the output: uneven splits, bit-equal to "
         "single_8k()")
+    host = {}
     for (h, w), scale, (d, r, c) in UNEVEN:
         ow, oh = scaled_size(w, h, scale)
         mesh = mesh_of(d * r * c, data=d, row=r, col=c)
@@ -1114,7 +1150,9 @@ def phase_single_8k_uneven(e: Extra) -> None:
         say(f"  {w}x{h} x{scale:g} -> {ow}x{oh} over {name}: output rows "
             f"{oh} % {r} = {oh % r}, columns {ow} % {c} = {ow % c}")
         frame = e.rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
-        mesh_run(e, frame, scale, mesh, name, f"{name} blocks")
+        host[(h, w), scale, (d, r, c)] = mesh_run(e, frame, scale, mesh, name,
+                                                  f"{name} blocks")[name]
+    return host
 
 
 def phase_sharded_train(e: Extra) -> None:
@@ -1425,6 +1463,184 @@ def phase_device_entry(e: Extra, frames: np.ndarray) -> None:
         f"upscale_planar {planar_ms:.4f} ms, {mpix / (planar_ms / 1e3):.2f} "
         f"MP/s ({e.gpu})")
 
+
+
+def h2d_copies(events: list) -> list:
+    return [ev for ev in events if ev.get("cat") == "gpu_memcpy"
+            and "HtoD" in ev.get("name", "")]
+
+
+def phase_stream_tensors(e: Extra, synthetic_fps: float) -> None:
+    from srcnn_cpp_tpu_torch.stream import StreamUpscaler
+
+    n, batch, depth = 12, 4, 3
+    say(f"phase 22: StreamUpscaler(2.0, batch={batch}, depth={depth}) fed "
+        f"{n} x 1080x1920 CUDA tensors vs the same frames as host arrays")
+    frames = e.rng.integers(0, 256, (n, 1080, 1920, 3), dtype=np.uint8)
+    tensors = list(torch.from_numpy(frames).cuda().unbind(0))
+    up = StreamUpscaler(2.0, e.weights, depth=depth, batch=batch)
+
+    def stream(feed):
+        outs = [o for f in feed if (o := up.push(f)) is not None]
+        return outs + list(up.drain())
+
+    ref = stream(list(frames))
+    outs, launches = e.drive("stream fed CUDA tensors",
+                             lambda: stream(tensors), MAIN_WRAPPERS)
+    if any(launches[k] != n // batch for k in MAIN_WRAPPERS):
+        raise AssertionError(f"expected {n // batch} launches of each of K2, "
+                             f"K1, K3, got {launches}")
+    if len(outs) != n or not all(
+            isinstance(o, np.ndarray) and o.flags.c_contiguous
+            and np.array_equal(o, r) for o, r in zip(outs, ref)):
+        raise AssertionError("the CUDA-tensor feed differs from the "
+                             "host-array feed")
+    say(f"  {n} frames: host arrays out, bit-equal to the host-array feed, "
+        "in order")
+    _, events, _ = trace_events(lambda: stream(tensors[:batch]))
+    h2d = h2d_copies(events)
+    say(f"  trace() of one dispatch: host-to-device copies "
+        f"{[ev['name'] for ev in h2d] or 'none'}, device-to-host copies "
+        f"{len(d2h_copies(events))} (into the pinned output)")
+    if h2d:
+        raise AssertionError("a dispatch of CUDA frames copied from the host")
+    # the rate: the 12 frames cycled to 96, 24 dispatches, so the ring of
+    # depth + 1 slots wraps 6 times with depth dispatches in flight
+    long = n * 8
+    feeds = {"host arrays": [frames[i % n] for i in range(long)],
+             "CUDA tensors": [tensors[i % n] for i in range(long)]}
+    secs = {k: [] for k in feeds}
+    for k in ("host arrays", "CUDA tensors", "CUDA tensors",
+              "host arrays") * 3:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stream(feeds[k])
+        secs[k].append(time.perf_counter() - t0)
+    say(f"  fps, medians of 6 runs of {long} frames ({long // batch} "
+        f"dispatches), in turns: " + ", ".join(
+            f"{k} {long / statistics.median(v):.2f}"
+            for k, v in secs.items())
+        + f"; phase 10 run_synthetic (host frames, batch 4) "
+        f"{synthetic_fps:.2f} ({e.gpu})")
+
+
+#: phase 23's geometries: phase 16's and one of phase 16b's
+MESH_TENSOR = ((FRAME_8K, 2.0, (1, 4, 1)), ((1080, 1920), 1.5, (1, 8, 1)))
+
+
+def phase_single_8k_mesh_tensor(e: Extra, host_ms: dict) -> None:
+    from srcnn_cpp_tpu_torch.configs import single_8k
+    from srcnn_cpp_tpu_torch.ops.resize import scaled_size
+    from srcnn_cpp_tpu_torch.weights import weights_on
+
+    say("phase 23: configs.single_8k(mesh=...) over cuda:0 on a CUDA tensor: "
+        "a CUDA tensor out, bit-equal to the host-array call and to "
+        "single_8k()")
+    weight_bytes = {t.numel() * t.element_size()
+                    for t in weights_on(None, "cpu").as_dict().values()}
+    for (h, w), scale, (d, r, c) in MESH_TENSOR:
+        ow, oh = scaled_size(w, h, scale)
+        mesh = mesh_of(d * r * c, data=d, row=r, col=c)
+        tag = f"{w}x{h} x{scale:g} over ({d},{r},{c})"
+        frame = e.rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+        xt = torch.from_numpy(frame).cuda()
+        # the default weights, kept on the CPU by the runner
+        run = single_8k(mesh=mesh, scale=scale)
+        out, launches = e.drive(f"single_8k(mesh) {tag}, CUDA tensor",
+                                lambda: run(xt), MAIN_WRAPPERS)
+        if any(launches[k] != mesh.size for k in MAIN_WRAPPERS):
+            raise AssertionError(f"{tag}: launches {launches}, not one of "
+                                 "each of K2, K1, K3 per block")
+        if not isinstance(out, torch.Tensor) or out.device != xt.device \
+                or out.shape != (oh, ow, 3) or not out.is_contiguous():
+            raise AssertionError(f"{tag}: expected a contiguous CUDA tensor "
+                                 f"[{oh},{ow},3], got {type(out).__name__} "
+                                 f"{getattr(out, 'device', '')}")
+        host_out = run(frame)
+        if not isinstance(host_out, np.ndarray):
+            raise AssertionError(f"{tag}: a host array in gave "
+                                 f"{type(host_out).__name__}")
+        assert_equal(out, torch.from_numpy(host_out).cuda(),
+                     f"{tag} vs the host-array call")
+        assert_equal(out, single_8k(e.weights, scale=scale)(xt),
+                     f"{tag} vs single_8k() on the tensor")
+        _, events, _ = trace_events(lambda: run(xt))
+        d2h, h2d = d2h_copies(events), h2d_copies(events)
+        sizes = [ev.get("args", {}).get("bytes") for ev in h2d]
+        say(f"  trace(): {len(d2h)} device-to-host copies, {len(h2d)} "
+            f"host-to-device copies ({sum(sizes)} bytes: {sizes}; the "
+            f"weights' tensors are {sorted(weight_bytes)} bytes)")
+        if d2h or any(b not in weight_bytes for b in sizes):
+            raise AssertionError(f"{tag}: frame or block bytes crossed "
+                                 "between host and card")
+        tensor_ms = median_ms(lambda: run(xt), 5)
+        key = ((h, w), scale, (d, r, c))
+        say(f"  {tag}: CUDA tensor in and out {tensor_ms:.4f} ms (CUDA "
+            f"events, median of 5); host arrays in and out "
+            f"{host_ms[key]:.1f} ms (phase 16/16b, median of 5) ({e.gpu})")
+
+
+def phase_process_srcnn(e: Extra) -> None:
+    from srcnn_cpp_tpu_torch.imageio import conv_image, imread_bgr
+    from srcnn_cpp_tpu_torch.ops.color import bgr2ycrcb_u8
+    from srcnn_cpp_tpu_torch.ops.cuda_srcnn import srcnn_y_fused
+    from srcnn_cpp_tpu_torch.ops.resize import resize_bicubic_u8, scaled_size
+    from srcnn_cpp_tpu_torch.pipeline import process_srcnn, upscale_bgr
+
+    bf = imread_bgr(ROOT / "tests/data/eval/butterfly.png")
+    if bf is None:
+        raise AssertionError("no cv2 or PIL to decode butterfly.png")
+    h, w = bf.shape[:2]
+    ow, oh = scaled_size(w, h, 2.0)
+    say(f"phase 24: process_srcnn on the card, butterfly {w}x{h} x2 at "
+        "d = 1, 2, 3, 4 vs the port's card composition and its CPU run")
+    rgb = np.ascontiguousarray(bf[..., ::-1])
+    r, g, b = (rgb[..., i].astype(np.uint16) for i in range(3))
+    alpha = e.rng.integers(0, 256, (h, w, 1), dtype=np.uint8)
+    bufs = {
+        1: bgr2ycrcb_u8(torch.from_numpy(bf))[..., 0].numpy().reshape(-1),
+        2: ((r >> 3) << 11 | (g >> 2) << 5 | (b >> 3)).view(np.uint8)
+        .reshape(-1),
+        3: rgb.reshape(-1),
+        4: np.concatenate([rgb, alpha], axis=-1).reshape(-1)}
+    cpu_weights = e.weights.to("cpu")
+    for d, buf in bufs.items():
+        needs = ("srcnn_y_fused",) if d == 1 else MAIN_WRAPPERS
+        (got, size), launches = e.drive(
+            f"process_srcnn d={d}",
+            lambda: process_srcnn(buf, w, h, d, 2.0, e.weights, "cuda"),
+            needs)
+        if any(launches[k] != (k in needs) for k in launches):
+            raise AssertionError(f"d={d}: launches {launches}, expected one "
+                                 f"of each of {needs} and no other")
+        c = 3 if d == 2 else d
+        if size != ow * oh * c or got.shape != (size,):
+            raise AssertionError(f"d={d}: out_size {size}, not {ow * oh * c}")
+        if d == 1:
+            want = srcnn_y_fused(resize_bicubic_u8(
+                torch.from_numpy(bufs[1].reshape(h, w)).cuda(), (oh, ow)),
+                e.weights).cpu().numpy().reshape(-1)
+        else:
+            src = conv_image(buf, w, h, 2) if d == 2 else rgb
+            want = upscale_bgr(src[..., ::-1], 2.0, e.weights, "cuda")
+            want = want[..., ::-1]
+        out = got.reshape(oh, ow, c) if d > 1 else got
+        if not np.array_equal(out[..., :3] if d == 4 else out, want):
+            raise AssertionError(f"d={d}: differs from the card composition")
+        cpu, _ = process_srcnn(buf, w, h, d, 2.0, cpu_weights, "cpu")
+        diff = np.abs(got.astype(np.int32) - cpu.astype(np.int32))
+        bar = 1 if d == 1 else 2
+        say(f"  d={d}: out_size {size}, bit-equal to the card composition; "
+            f"vs the CPU run max {diff.max()} LSB, (diff>1) "
+            f"{(diff > 1).mean():.2e}, (diff>0) {(diff > 0).mean():.2e}")
+        if diff.max() > bar or (diff > 1).mean() >= E2E_FRAC:
+            raise AssertionError(f"d={d}: the card run misses the gate "
+                                 "against the CPU run")
+        if d == 4:
+            assert_equal(torch.from_numpy(out[..., 3].copy()),
+                         torch.from_numpy(cpu.reshape(oh, ow, 4)[..., 3]
+                                          .copy()),
+                         "d=4 alpha vs the CPU run")
 
 if __name__ == "__main__":
     sys.exit(main())

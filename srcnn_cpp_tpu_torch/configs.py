@@ -18,7 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .pipeline import upscale_bgr, upscale_bgr_batch, weights_on
+from .pipeline import u8_tensor, upscale_bgr, upscale_bgr_batch, weights_on
 from .stream import StreamUpscaler
 from .weights import SRCNNWeights
 
@@ -47,14 +47,20 @@ def batch_1080p_to_4k(weights: SRCNNWeights | None = None, batch: int = 32,
 
 def single_8k(weights: SRCNNWeights | None = None, mesh=None,
               scale: float = 2.0, device="cuda"):
-    """Runner: one huge BGR frame ``[H, W, 3]`` -> ``scale``, on ``device``
-    (without ``mesh``: tensor in, tensor on ``device`` out; array in, array
-    out).
+    """Runner: one huge BGR frame ``[H, W, 3]`` -> ``scale``, on ``device``.
+
+    Tensor in, tensor out; array in, array out, with or without ``mesh``,
+    so the two runners are interchangeable.  Without ``mesh`` a tensor's
+    result is returned on ``device``.
 
     With ``mesh`` (:func:`.parallel.make_mesh`; ``device`` is then unused)
     each block's input rows go to its device, and windowed K2, K1 and K3
     run per block with halo exchange (:func:`.parallel.tiling.upscale_blocks`);
-    the result equals the unsharded runner's bit for bit.  Any H and W
+    the result equals the unsharded runner's bit for bit.  A tensor (any
+    device, any strides) becomes planar as a view, its blocks go from its
+    device straight to theirs, and the result is joined and made HWC on
+    the input's device, unfetched; a host array is transposed on the host
+    and its blocks joined there.  Any H and W
     serve: an axis that does not divide the input or output size splits it
     unevenly (``tensor_split``).  A geometry whose blocks are too small for
     their halos raises ValueError.
@@ -76,15 +82,22 @@ def _single_8k_mesh(weights: SRCNNWeights | None, mesh, scale: float):
 
     weights = weights_on(weights, "cpu") if weights is None else weights
 
-    def run(bgr: np.ndarray) -> np.ndarray:
+    def run(bgr):
         h, w = bgr.shape[:2]
         ow, oh = scaled_size(w, h, scale)
-        # a host transpose, as the JAX runner's (srcnn_cpp_tpu/configs.py:125)
-        planar = torch.from_numpy(np.ascontiguousarray(
-            np.moveaxis(np.asarray(bgr, dtype=np.uint8), -1, 0)))[None]
+        tensor = isinstance(bgr, torch.Tensor)
+        if tensor:
+            planar = u8_tensor(bgr).permute(2, 0, 1)[None]
+        else:
+            # a host transpose, as the JAX runner's (srcnn_cpp_tpu/configs.py:119)
+            planar = torch.from_numpy(np.ascontiguousarray(
+                np.moveaxis(np.asarray(bgr, dtype=np.uint8), -1, 0)))[None]
         out = upscale_blocks(split_blocks(planar, mesh), weights, (h, w),
                              (oh, ow), mesh)
-        out = gather_blocks(out, device="cpu")[0]
+        # the JAX runner always fetches (srcnn_cpp_tpu/configs.py:125)
+        out = gather_blocks(out, device=planar.device)[0]
+        if tensor:
+            return out.permute(1, 2, 0).contiguous()
         return np.ascontiguousarray(np.moveaxis(out.numpy(), 0, -1))
 
     return run

@@ -31,6 +31,14 @@ from .ops.resize import resize_bicubic_u8, scaled_size
 from .weights import SRCNNWeights, weights_on
 
 
+def u8_tensor(frames: torch.Tensor) -> torch.Tensor:
+    """``frames``, a tensor given to a frame entry point, if it is uint8;
+    anything else raises TypeError."""
+    if frames.dtype != torch.uint8:
+        raise TypeError(f"expected a uint8 tensor, got {frames.dtype}")
+    return frames
+
+
 def upscale_planar(bgr_p: torch.Tensor, weights: SRCNNWeights,
                    out_hw: tuple[int, int]) -> torch.Tensor:
     """Planar BGR u8 ``[B, 3, H, W]`` -> planar BGR u8 ``[B, 3, oh, ow]``,
@@ -56,9 +64,7 @@ def upscale_bgr_batch(bgr_u8, scale: float, weights: SRCNNWeights | None = None,
     """
     device = torch.device(device)
     if isinstance(bgr_u8, torch.Tensor):
-        if bgr_u8.dtype != torch.uint8:
-            raise TypeError(f"expected a uint8 tensor, got {bgr_u8.dtype}")
-        planar = bgr_u8.to(device).permute(0, 3, 1, 2).contiguous()
+        planar = u8_tensor(bgr_u8).to(device).permute(0, 3, 1, 2).contiguous()
     else:
         bgr = np.asarray(bgr_u8, dtype=np.uint8)
         planar = torch.from_numpy(np.ascontiguousarray(

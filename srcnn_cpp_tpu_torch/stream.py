@@ -7,12 +7,16 @@ overlap device compute, plus a CLI:
     python -m srcnn_cpp_tpu_torch.stream --scale=2 in.mp4 out.avi
     python -m srcnn_cpp_tpu_torch.stream --synthetic=32 --device-resident --batch=8 --size=1920x1080
 
-On a CUDA device, ``push`` stages each micro-batch in a pinned host buffer,
-enqueues the host-to-device copy, the pipeline (:func:`.pipeline.upscale_planar`:
-K2 -> K1 -> K3, with the HWC <-> planar transposes on the card) and the
-device-to-host copy into a pinned output buffer on the current CUDA stream,
-records an event and returns; a result is read only once the pipeline depth
-is reached, after its event has completed.  On the CPU each micro-batch runs
+``push`` takes a host array or a ``torch.Tensor`` on any device, as the JAX
+stream takes a host or device array; results are host arrays either way.
+On a CUDA device, a micro-batch of host frames is staged in a pinned host
+buffer and copied in; one that holds a tensor is stacked on the card
+instead (a frame already there is not copied).  Then the pipeline
+(:func:`.pipeline.upscale_planar`: K2 -> K1 -> K3, with the HWC <-> planar
+transposes on the card) and the device-to-host copy into a pinned output
+buffer are enqueued on the current CUDA stream, an event is recorded and
+``push`` returns; a result is read only once the pipeline depth is
+reached, after its event has completed.  On the CPU each micro-batch runs
 the plain pipeline at once.  ``--device=cuda`` (the default) without a GPU
 is an error.
 """
@@ -29,7 +33,7 @@ import torch
 
 from .cli import DEVICES, cuda_missing, device_name
 from .ops.resize import scaled_size
-from .pipeline import upscale_bgr_batch, upscale_planar, weights_on
+from .pipeline import u8_tensor, upscale_bgr_batch, upscale_planar, weights_on
 from .weights import SRCNNWeights
 
 _PROG = "srcnn-torch-stream"
@@ -57,7 +61,7 @@ class StreamUpscaler:
         self.batch = max(1, int(batch))
         self.device = torch.device(device)
         self.weights = weights_on(weights, self.device)
-        self._pending: list[np.ndarray] = []
+        self._pending: list = []   # host arrays or tensors
         self._inflight: collections.deque = collections.deque()
         self._ready: collections.deque = collections.deque()
         self._ring: list[tuple[torch.Tensor, torch.Tensor]] = []
@@ -81,19 +85,29 @@ class StreamUpscaler:
         self._next = (self._next + 1) % len(self._ring)
         return pair
 
+    def _stack(self, frames: list) -> torch.Tensor:
+        """A micro-batch of host arrays and tensors, stacked on
+        ``self.device``."""
+        return torch.stack([torch.as_tensor(f).to(self.device)
+                            for f in frames])
+
     def _dispatch(self) -> None:
         frames, self._pending = self._pending, []
         n = len(frames)
         if self.device.type != "cuda":
             self._inflight.append((None, upscale_bgr_batch(
-                np.stack(frames), self.scale, self.weights, self.device)))
+                self._stack(frames), self.scale, self.weights,
+                self.device).numpy()))
             return
+        tensors = any(isinstance(f, torch.Tensor) for f in frames)
         h, w = frames[0].shape[:2]
         pin_in, pin_out = self._slot(h, w)
-        np.stack(frames, out=pin_in.numpy()[:n])
+        if not tensors:
+            np.stack(frames, out=pin_in.numpy()[:n])
         ow, oh = scaled_size(w, h, self.scale)
         with torch.cuda.device(self.device):
-            x = pin_in[:n].to(self.device, non_blocking=True)
+            x = (self._stack(frames) if tensors
+                 else pin_in[:n].to(self.device, non_blocking=True))
             out = upscale_planar(x.permute(0, 3, 1, 2).contiguous(),
                                  self.weights, (oh, ow))
             pin_out[:n].copy_(out.permute(0, 2, 3, 1).contiguous(),
@@ -109,10 +123,13 @@ class StreamUpscaler:
             out = out.numpy().copy()    # the pinned buffer will be reused
         self._ready.extend(out)
 
-    def push(self, frame_bgr: np.ndarray) -> np.ndarray | None:
-        """Enqueue one BGR uint8 frame ``[H, W, 3]``; returns a completed
-        frame or None."""
-        self._pending.append(np.asarray(frame_bgr, dtype=np.uint8))
+    def push(self, frame_bgr) -> np.ndarray | None:
+        """Enqueue one BGR uint8 frame ``[H, W, 3]``, a host array or a
+        ``torch.Tensor`` on any device with any strides; returns a completed
+        frame (a C-contiguous host array) or None."""
+        self._pending.append(u8_tensor(frame_bgr)
+                             if isinstance(frame_bgr, torch.Tensor)
+                             else np.asarray(frame_bgr, dtype=np.uint8))
         if len(self._pending) == self.batch:
             self._dispatch()
         if len(self._inflight) > self.depth:

@@ -427,6 +427,83 @@ def test_cuda_single_8k_uneven_mesh_bit_equal(cuda, cuda_weights):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("hw,scale", [((64, 96), 2.0), ((37, 26), 1.5)])
+def test_cuda_single_8k_mesh_takes_a_cuda_tensor(cuda, cuda_weights, hw,
+                                                 scale):
+    # tensor in, tensor on the card out: bit-equal to the host-array call
+    # and to single_8k() on the same tensor, K2, K1, K3 once per block
+    from srcnn_cpp_tpu_torch.configs import single_8k
+    from srcnn_cpp_tpu_torch.ops.cuda_merge import merge_ycrcb_to_bgr_fused
+    from srcnn_cpp_tpu_torch.ops.cuda_resize import pre_upscale_fused
+    from srcnn_cpp_tpu_torch.ops.cuda_srcnn import srcnn_y_fused
+    from srcnn_cpp_tpu_torch.parallel import make_mesh
+
+    frame = _u8((*hw, 3), 21)
+    x = _dev(frame, cuda)
+    run = single_8k(cuda_weights, mesh=make_mesh(1, 4, devices=[cuda] * 4),
+                    scale=scale)
+    kernels = (pre_upscale_fused, srcnn_y_fused, merge_ycrcb_to_bgr_fused)
+    before = [f.launches for f in kernels]
+    got = run(x)
+    assert [f.launches - n for f, n in zip(kernels, before)] == [4, 4, 4]
+    assert isinstance(got, torch.Tensor) and got.device == x.device
+    assert got.is_contiguous()
+    assert np.array_equal(got.cpu().numpy(), run(frame))
+    assert torch.equal(got, single_8k(cuda_weights, scale=scale,
+                                      device=cuda)(x))
+
+
+def _process_input(d, h, w):
+    """A seeded ``process_srcnn`` buffer of depth ``d``: gray, RGB565
+    (native u16), RGB or RGBA."""
+    rng = np.random.default_rng(d)
+    if d == 2:
+        px = rng.integers(0, 1 << 16, (h, w), dtype=np.uint16)
+        return px.view(np.uint8).reshape(-1)
+    return rng.integers(0, 256, h * w * d, dtype=np.uint8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 2, 3, 4])
+def test_cuda_process_srcnn_matches_cpu(cuda, cuda_weights, d):
+    # bit-equal to the same composition on the card; against the CPU run
+    # <=1 LSB at d=1 (the conv), the golden gate elsewhere; alpha bit-equal
+    from srcnn_cpp_tpu_torch.imageio import conv_image
+    from srcnn_cpp_tpu_torch.ops.cuda_merge import merge_ycrcb_to_bgr_fused
+    from srcnn_cpp_tpu_torch.ops.cuda_resize import pre_upscale_fused
+    from srcnn_cpp_tpu_torch.ops.cuda_srcnn import srcnn_y_fused
+    from srcnn_cpp_tpu_torch.ops.resize import resize_bicubic_u8
+    from srcnn_cpp_tpu_torch.pipeline import process_srcnn, upscale_bgr
+
+    h, w = 45, 62
+    buf = _process_input(d, h, w)
+    kernels = (pre_upscale_fused, srcnn_y_fused, merge_ycrcb_to_bgr_fused)
+    before = [f.launches for f in kernels]
+    got, n = process_srcnn(buf, w, h, d, 2.0, cuda_weights, device=cuda)
+    ran = [f.launches - b for f, b in zip(kernels, before)]
+    assert ran == ([0, 1, 0] if d == 1 else [1, 1, 1])
+    c = 3 if d == 2 else d
+    assert n == got.size == 90 * 124 * c
+    out = got.reshape(90, 124, c) if c > 1 else got.reshape(90, 124)
+    if d == 1:
+        want = srcnn_y_fused(resize_bicubic_u8(
+            _dev(buf.reshape(h, w), cuda), (90, 124)), cuda_weights)
+        want = want.cpu().numpy()
+    else:
+        rgb = conv_image(buf, w, h, 2) if d == 2 else \
+            buf.reshape(h, w, d)[..., :3]
+        want = upscale_bgr(rgb[..., ::-1], 2.0, cuda_weights, cuda)[..., ::-1]
+    assert np.array_equal(out[..., :3] if d == 4 else out, want)
+    cpu, _ = process_srcnn(buf, w, h, d, 2.0, cuda_weights.to("cpu"),
+                           device="cpu")
+    diff = np.abs(got.astype(int) - cpu.astype(int))
+    assert diff.max() <= (1 if d == 1 else 2), diff.max()
+    assert (diff > 1).mean() < 1e-5
+    if d == 4:
+        assert np.array_equal(out[..., 3], cpu.reshape(90, 124, 4)[..., 3])
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("s,rows,cols", _WINDOW_CASES)
 def test_cuda_windowed_pre_pass_equals_its_slice(cuda, s, rows, cols):
     from srcnn_cpp_tpu_torch.ops.cuda_resize import pre_upscale_fused

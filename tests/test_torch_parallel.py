@@ -1,5 +1,6 @@
 """PyTorch port, ``parallel/``: meshes, the tilings of K1, K2 and K3, the
-tiled ``single_8k`` and the sharded train step, against the JAX package.
+tiled ``single_8k`` (fed host arrays or tensors) and the sharded train
+step, against the JAX package.
 
 The port's meshes name the CPU 8 times; the JAX package runs on conftest's
 8 virtual devices.  On the CPU every block runs its kernel's plain version.
@@ -270,6 +271,49 @@ def test_single_8k_mesh_uneven_matches_jax(weights, tweights):
                         kernel="xla")(frame)
     assert got.shape == ref.shape == (55, 39, 3)
     d = np.abs(got.astype(int) - np.asarray(ref).astype(int))
+    assert d.max() <= 2, d.max()
+    assert (d > 1).mean() < 1e-5, (d > 1).mean()
+
+
+@pytest.mark.parametrize("mesh,hw,scale", [
+    ((1, 4, 1), (48, 64), 2.0),
+    ((1, 8, 1), (37, 26), 1.5)])     # uneven: 55 output rows over 8
+@pytest.mark.parametrize("strided", [False, True])
+def test_single_8k_mesh_takes_a_tensor(tweights, mesh, hw, scale, strided):
+    # tensor in, tensor out on the input's device, bit-equal to the
+    # host-array call, as the unmeshed runner
+    from srcnn_cpp_tpu_torch.configs import single_8k
+
+    frame = _u8((*hw, 3), 17)
+    t = torch.from_numpy(frame.copy())
+    if strided:
+        t = t.transpose(0, 1).contiguous().transpose(0, 1)
+        assert not t.is_contiguous()
+    run = single_8k(tweights, mesh=_mesh(*mesh), scale=scale)
+    got = run(t)
+    want = run(frame)
+    assert isinstance(got, torch.Tensor) and got.device.type == "cpu"
+    assert got.dtype == torch.uint8 and got.is_contiguous()
+    assert isinstance(want, np.ndarray)
+    assert np.array_equal(got.numpy(), want)
+    assert torch.equal(got, single_8k(tweights, scale=scale,
+                                      device="cpu")(t))
+
+
+def test_single_8k_mesh_tensor_matches_jax(weights, tweights):
+    # the JAX meshed runner fed a device array, the port's a CPU tensor;
+    # the pipeline bar, as test_single_8k_mesh_uneven_matches_jax
+    import jax.numpy as jnp
+    from srcnn_cpp_tpu.configs import single_8k as jax_single_8k
+    from srcnn_cpp_tpu_torch.configs import single_8k
+
+    frame = _u8((37, 26, 3), 5)
+    got = single_8k(tweights, mesh=_mesh(1, 8), scale=1.5)(
+        torch.from_numpy(frame))
+    ref = jax_single_8k(weights, mesh=_jax_mesh(1, 8), scale=1.5,
+                        kernel="xla")(jnp.asarray(frame))
+    assert tuple(got.shape) == ref.shape == (55, 39, 3)
+    d = np.abs(got.numpy().astype(int) - np.asarray(ref).astype(int))
     assert d.max() <= 2, d.max()
     assert (d > 1).mean() < 1e-5, (d > 1).mean()
 

@@ -6,8 +6,11 @@ every micro-batch size (every op works frame by frame).  The same pipeline
 is held against the JAX package by tests/test_torch_pipeline.py, so here
 the stream is also checked against the JAX stream to the pipeline's bar
 (<=2 LSB, (diff > 1) on < 1e-5 of values).  ``run_synthetic`` reports the
-float32-floor output geometry.  A ``cuda``-marked test drives the stream
-with its pinned buffer ring on the card.
+float32-floor output geometry.  ``push`` also takes ``torch.Tensor``
+frames (any strides, mixed with host arrays in one micro-batch); they give
+the numpy feed's results bit for bit.  ``cuda``-marked tests drive the
+stream with its pinned buffer ring on the card, fed host arrays and CUDA
+tensors.
 """
 
 import numpy as np
@@ -50,6 +53,67 @@ def test_stream_matches_jax_stream(weights):
     ref = _collect(JaxStream(2.0, weights, kernel="xla", batch=2), frames)
     assert len(got) == len(ref) == 4
     for g, r in zip(got, ref):
+        d = np.abs(g.astype(int) - np.asarray(r).astype(int))
+        assert d.max() <= 2 and (d > 1).mean() < 1e-5
+
+
+def _as_tensors(frames, kind, device="cpu"):
+    """``frames`` as the kind of input a caller may push: contiguous
+    tensors on ``device``, non-contiguous views of them, or tensors and
+    host arrays in turns (so each micro-batch of 2 or 3 mixes the two)."""
+    ts = [torch.from_numpy(f.copy()).to(device) for f in frames]
+    if kind == "strided":
+        ts = [t.transpose(0, 1).contiguous().transpose(0, 1) for t in ts]
+        assert not any(t.is_contiguous() for t in ts)
+    if kind == "mixed":
+        return [t if i % 2 else f for i, (t, f) in enumerate(zip(ts, frames))]
+    return ts
+
+
+@pytest.mark.parametrize("kind", ["contiguous", "strided", "mixed"])
+@pytest.mark.parametrize("batch", [1, 3])
+def test_stream_takes_tensors_bit_equal_to_numpy(kind, batch):
+    from srcnn_cpp_tpu_torch.stream import StreamUpscaler
+
+    frames = _frames(5, 18, 30, 9)
+    ref = _collect(StreamUpscaler(2.0, batch=batch, depth=2, device="cpu"),
+                   frames)
+    got = _collect(StreamUpscaler(2.0, batch=batch, depth=2, device="cpu"),
+                   _as_tensors(frames, kind))
+    assert len(got) == len(ref) == len(frames)
+    for g, r in zip(got, ref):
+        assert isinstance(g, np.ndarray) and g.flags.c_contiguous
+        assert g.shape == (36, 60, 3) and np.array_equal(g, r)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32])
+def test_stream_refuses_a_non_u8_tensor(dtype):
+    from srcnn_cpp_tpu_torch.stream import StreamUpscaler
+
+    up = StreamUpscaler(2.0, device="cpu")
+    with pytest.raises(TypeError, match="uint8"):
+        up.push(torch.zeros((8, 8, 3), dtype=dtype))
+    assert up.push(torch.from_numpy(_frames(1, 8, 8, 2)[0])) is None
+    assert len(list(up.drain())) == 1
+
+
+def test_stream_tensor_frames_match_jax_stream(weights):
+    # the JAX stream fed device arrays, the port's fed CPU tensors; the
+    # pipeline bar: <=2 LSB, (diff > 1) on < 1e-5 of values
+    import jax.numpy as jnp
+    from srcnn_cpp_tpu.stream import StreamUpscaler as JaxStream
+    from srcnn_cpp_tpu_torch.stream import StreamUpscaler
+    from srcnn_cpp_tpu_torch.weights import from_jax_params
+
+    frames = _frames(5, 20, 24, 11)
+    got = _collect(StreamUpscaler(2.0, from_jax_params(weights), batch=2,
+                                  device="cpu"),
+                   [torch.from_numpy(f) for f in frames])
+    ref = _collect(JaxStream(2.0, weights, kernel="xla", batch=2),
+                   [jnp.asarray(f) for f in frames])
+    assert len(got) == len(ref) == 5
+    for g, r in zip(got, ref):
+        assert isinstance(g, np.ndarray)
         d = np.abs(g.astype(int) - np.asarray(r).astype(int))
         assert d.max() <= 2 and (d > 1).mean() < 1e-5
 
@@ -167,8 +231,11 @@ def test_stream_4k30_distributed_in_one_process():
 # --- on the card ---------------------------------------------------------------
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["host", "contiguous", "strided", "mixed"])
 @pytest.mark.parametrize("batch,depth", [(1, 1), (3, 2)])
-def test_cuda_stream_matches_batch_path(batch, depth):
+def test_cuda_stream_matches_batch_path(batch, depth, kind):
+    # host frames go through the pinned ring, CUDA frames are stacked on
+    # the card; either way host arrays bit-equal to the batch path, in order
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from srcnn_cpp_tpu_torch.ops.cuda_srcnn import srcnn_y_fused
@@ -178,9 +245,11 @@ def test_cuda_stream_matches_batch_path(batch, depth):
 
     w = load_weights(device="cuda")
     frames = _frames(7, 36, 52, 3)
+    feed = frames if kind == "host" else _as_tensors(frames, kind, "cuda")
     launches = srcnn_y_fused.launches
-    outs = _collect(StreamUpscaler(2.0, w, depth=depth, batch=batch), frames)
+    outs = _collect(StreamUpscaler(2.0, w, depth=depth, batch=batch), feed)
     assert srcnn_y_fused.launches - launches == -(-len(frames) // batch)
     assert len(outs) == len(frames)
     for f, o in zip(frames, outs):
+        assert isinstance(o, np.ndarray) and o.flags.c_contiguous
         assert np.array_equal(o, upscale_bgr_batch(f[None], 2.0, w, "cuda")[0])
