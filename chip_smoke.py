@@ -5,7 +5,8 @@
 
 Builds the five CUDA kernels of the port from ``srcnn_cpp_tpu_torch/csrc``
 (one nvcc per source, sm_90a; phase 1 prints ptxas's registers and spills,
-the conv's setmaxnreg split, and fails on any spill), holds each against
+the conv's setmaxnreg split and K2's static SASS instruction counts, and
+fails on any spill), holds each against
 its plain PyTorch version on the card, and drives each path through the
 entry points a user calls, with the launch counts set to 0 just before and
 read just after:
@@ -14,7 +15,9 @@ read just after:
   frames at x2 (K2 pre-pass -> K1 conv -> K3 merge), checked against the
   plain pipeline on the card and the reference binary's goldens; two calls
   with the default weights pack the conv weights once; timed beside each
-  kernel's bound, with K1's achieved TFLOP/s and MACs per output pixel;
+  kernel's bound, with K1's achieved TFLOP/s and MACs per output pixel,
+  and K2's record: its graph-replay and profiler time, achieved bytes/s,
+  plan and persistent blocks;
 * phase 7, K4 ``srcnn_merge_fused`` (conv + merge in one kernel) on the
   main path's upscaled YCrCb batch: bit-equal to K1 -> K3;
 * phase 8, K5 ``srcnn_y_f32_fused`` (f32-output conv) on a 2160x3840
@@ -231,7 +234,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
 
     from srcnn_cpp_tpu_torch import runtime
-    from srcnn_cpp_tpu_torch.kernel_ab import graph_ms, profile
+    from srcnn_cpp_tpu_torch.kernel_ab import graph_ms, profile, sass_counts
     from srcnn_cpp_tpu_torch.ops.cuda_merge import (merge_plain,
                                                     merge_ycrcb_to_bgr_fused)
     from srcnn_cpp_tpu_torch.ops.cuda_resize import (pre_upscale_fused,
@@ -252,6 +255,10 @@ def main() -> int:
             say(f"  ptxas: {line.strip()}")
         elif "wgmma" in line or "setmaxnreg" in line:
             say(f"  ptxas: {line.strip()}")
+    sass = sass_counts(path, "pre_pass_kernel")
+    say("  K2 pre_pass_kernel, static SASS instruction counts: "
+        + (", ".join(f"{k} {v}" for k, v in sass.items()) if sass else
+           "not read (cuobjdump absent or failed)"))
     spilled = sum(int(n) for n in re.findall(r"(\d+) bytes spill", log))
     say(f"  ptxas: {spilled} bytes of spill stores and loads in all kernels")
     from srcnn_cpp_tpu_torch.ops import cuda_srcnn
@@ -292,8 +299,12 @@ def main() -> int:
 
     # phase 3: K2 pre-pass vs plain, bit-equal at every scale
     say("phase 3: K2 pre_upscale_fused vs pre_upscale_plain")
-    cases = [((2, 3, IH, IW), s) for s in (2.0, 1.5, 3.0, 1.25, 0.75, 1.2)]
-    cases.append(((1, 3, 333, 517), 2.75))
+    # x0.1: one row per thread (no tap row shared); [3,3,101,77]: odd W
+    # (byte loads) and OW % 4 != 0 (byte stores on odd rows); batch 1
+    cases = [((2, 3, IH, IW), s)
+             for s in (2.0, 1.5, 3.0, 1.25, 0.75, 1.2, 0.1)]
+    cases += [((1, 3, 333, 517), 2.75), ((3, 3, 101, 77), 2.75),
+              ((1, 3, IH, IW), 2.0)]
     for i, (shape, s) in enumerate(cases):
         x = u8(shape, 30 + i)
         ow, oh = scaled_size(shape[3], shape[2], s)
@@ -411,6 +422,7 @@ def main() -> int:
         "device time of 20 calls: " + ", ".join(
         f"{n} {profile(f)['device_ms_per_call']:.4f} ms" for n, f in k23))
     npix, nin = BATCH * OH * OW, BATCH * IH * IW
+    k2_record(x, npix, nin, gpu)
     bounds = {
         # bytes: BGR in, YCrCb out; operations: the fp32 vertical chain
         "pre_upscale_fused": bound(3 * (nin + npix), 21.0 * npix),
@@ -501,6 +513,39 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def k2_record(x: torch.Tensor, npix: int, nin: int, gpu: str) -> None:
+    """Phase 6's K2 record at the main geometry: graph-replay and profiler
+    time, achieved bytes/s, the plan and the persistent blocks it runs on
+    (the launcher's own residency query)."""
+    import ctypes
+
+    from srcnn_cpp_tpu_torch import runtime
+    from srcnn_cpp_tpu_torch.kernel_ab import graph_ms, profile
+    from srcnn_cpp_tpu_torch.ops.cuda_resize import (pre_pass_plan,
+                                                     pre_upscale_fused)
+
+    def fn():
+        return pre_upscale_fused(x, (OH, OW))
+
+    g, p = graph_ms(fn, 20), profile(fn)["device_ms_per_call"]
+    plan = pre_pass_plan(OH, OW, IH, IW)
+    slots = ctypes.c_int(0)
+    runtime.check(runtime.library().pre_pass_resident_blocks(
+        plan["smem_bytes"], ctypes.byref(slots)), "pre_pass_resident_blocks")
+    tiles = plan["grid"][0] * plan["grid"][1] * BATCH
+    grid = min(tiles, slots.value)
+    nbytes = 3 * (nin + npix)
+    say(f"  K2 record: graph {g:.4f} ms, profile {p:.4f} ms; "
+        f"{nbytes / p / 1e6:.1f} GB/s of {HBM_BPS / 1e9:.0f} "
+        f"({100 * nbytes / HBM_BPS / (p * 1e-3):.1f} % of the byte bound); "
+        f"plan: tile {plan['tile']}, {plan['cols']} columns x "
+        f"{plan['rows']} rows per thread, {plan['threads']} threads, window "
+        f"{plan['win']}, {plan['smem_bytes']} B of shared memory; "
+        f"{plan['grid']} x {BATCH} = {tiles} tiles on {grid} persistent "
+        f"blocks ({slots.value // runtime.num_sms()} an SM), "
+        f"{tiles / grid:.2f} tiles a block ({gpu})")
 
 
 def timed(phase, *args):

@@ -16,7 +16,9 @@ same frames as a host array, host clock per call).  Before timing it
 checks that both give the same K2 and K3 outputs, K1 outputs within 1 LSB
 of each other and host-array outputs within 2 LSB, and it profiles
 20 calls of each pipeline and of the odd-plane K3 (``torch.profiler``:
-device time by kernel, busy share of the span).  Prints one line per round
+device time by kernel, busy share of the span), and prints K2's static
+SASS instruction counts of both builds (``cuobjdump``, where it runs).
+Prints one line per round
 and a JSON summary (medians over the rounds, the profiles, the card's name
 and power limit), also written to ``--out``.  Needs a CUDA card.
 """
@@ -27,6 +29,8 @@ import argparse
 import importlib
 import importlib.util
 import json
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -149,6 +153,37 @@ def profile(fn, iters: int = 20) -> dict:
             "kernels_ms_per_call": kernels}
 
 
+def sass_counts(lib: Path, kernel: str,
+                ops=("I2F", "I2FP", "F2I", "FRND", "IDP", "LDS", "STS",
+                     "LDG", "STG")) -> dict | None:
+    """Static counts of the SASS opcodes ``ops`` in the code of ``kernel``
+    (a substring of its mangled name) within the built library ``lib``
+    (``cuobjdump -sass``): each instruction once, however often it runs.
+    None where the toolkit has no ``cuobjdump`` or it fails."""
+    exe = shutil.which("cuobjdump")
+    if exe is None and Path("/usr/local/cuda/bin/cuobjdump").exists():
+        exe = "/usr/local/cuda/bin/cuobjdump"
+    if exe is None:
+        return None
+    try:
+        run = subprocess.run([exe, "-sass", str(lib)], capture_output=True,
+                             text=True, timeout=300)
+    except (OSError, subprocess.TimeoutExpired):
+        return None
+    if run.returncode != 0:
+        return None
+    counts, inside = dict.fromkeys(ops, 0), False
+    for line in run.stdout.splitlines():
+        if "Function :" in line:
+            inside = kernel in line
+            continue
+        m = inside and re.search(r"/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?"
+                                 r"([A-Z][A-Z0-9]*)", line)
+        if m and m.group(1) in counts:
+            counts[m.group(1)] += 1
+    return counts
+
+
 def _card() -> str:
     return subprocess.run(
         ["nvidia-smi", "--id=0", "--query-gpu=name,power.limit",
@@ -179,7 +214,9 @@ def main(argv=None) -> int:
               "ops.cuda_resize", "ops.cuda_merge")}
         path, secs, _ = m["runtime"].build()
         m["runtime"].library()
-        print(f"{tag}: built {path} in {secs:.1f} s", flush=True)
+        print(f"{tag}: built {path} in {secs:.1f} s; K2's static SASS "
+              f"counts {sass_counts(path, 'pre_pass_kernel')}",
+              flush=True)
         sides[tag] = m
 
     rng = np.random.default_rng(0)

@@ -36,10 +36,17 @@ from .resize_tables import cv_cubic_tables
 __all__ = ["pre_upscale_fused", "pre_upscale_plain", "pre_pass_plan",
            "PreWindow", "window_tables", "window_source"]
 
-#: the largest output tile (rows, cols) of one block
-PRE_TILE = (64, 64)
-#: shared-memory budget of one block: the limit without an opt-in
-PRE_SMEM_BUDGET = 48 * 1024
+#: output columns per thread and warps per block (``CPT`` and ``WARPS`` of
+#: ``csrc/pre_pass.cu``): a warp spans :data:`PRE_TW` columns, a block's
+#: tile is ``PRE_WARPS * rows`` tall
+PRE_COLS, PRE_WARPS = 4, 8
+#: the widest tile (``TW_MAX``): one warp's columns
+PRE_TW = 32 * PRE_COLS
+#: output rows per thread, at most (32 at most: a tile, ``PRE_WARPS * R``
+#: rows, is no taller than a block has threads, one a row to stage its taps)
+PRE_ROWS = 8
+#: shared-memory budget of one block: two blocks fit an SM's 228 KB
+PRE_SMEM_BUDGET = 112 * 1024
 
 
 class PreWindow(NamedTuple):
@@ -90,10 +97,13 @@ def _window_spans(idx: np.ndarray, tile: int) -> tuple[np.ndarray, int]:
 
 
 def pre_pass_smem_bytes(tile: tuple[int, int], win: tuple[int, int]) -> int:
-    """Shared memory of one K2 block: int32 horizontal sums ``[3][WH][TW]``
-    and the YCrCb window ``[3][WH][WW rounded up to 4]`` in bytes."""
-    (_, tw), (wh, ww) = tile, win
-    return 3 * wh * tw * 4 + 3 * wh * (-(-ww // 4) * 4)
+    """Shared memory of one K2 block: float32 horizontal sums ``3 * WH * TW``,
+    the YCrCb window, one 4-byte word per pixel, ``[WH][WP]``, its pitch
+    ``WP`` being ``WW + 3`` (the 4-byte loads start up to 3 columns early)
+    rounded up to 4, and two tiles' row taps and weights (32 bytes a row
+    each: the next tile's are written while the last tile's are read)."""
+    (th, tw), (wh, ww) = tile, win
+    return 3 * wh * tw * 4 + wh * ((ww + 6) & ~3) * 4 + 2 * th * 32
 
 
 def _tables(oh: int, ow: int, h: int, w: int, window: PreWindow | None):
@@ -117,29 +127,47 @@ def pre_pass_plan(oh: int, ow: int, h: int, w: int,
     that window of the ``window.in_hw -> [oh, ow]`` resize read from an
     ``[h, w]`` input block.
 
-    A block owns :data:`PRE_TILE` output pixels (rows, cols), halved (rows
-    first) until its shared memory fits :data:`PRE_SMEM_BUDGET`, as at
-    strong downscales; its input window starts at
+    The output is cut into tiles of ``PRE_WARPS * R`` rows by ``TW``
+    columns; a block of :data:`PRE_WARPS` warps computes a tile at a time,
+    lane ``l`` of warp ``v`` columns ``PRE_COLS * l ..`` of rows
+    ``v * R .. v * R + R - 1`` (the launcher starts as many blocks as the
+    card holds at once, each walking tiles).  ``TW`` is the power of two
+    (4 .. :data:`PRE_TW`) that covers the output's width; ``R`` is
+    :data:`PRE_ROWS`, no taller than the output needs.  A tile's window
+    spans about ``TH * h / oh`` input rows, so at strong downscales ``R``
+    halves, then ``TW``, until the block's shared memory fits
+    :data:`PRE_SMEM_BUDGET`.  Tile ``(bx, by)``'s input window starts at
     ``x0[bx]``, ``y0[by]``: the smallest tap of the (window's) tables over
-    its columns and rows.  ``win`` (rows, cols) is the largest window of any
-    block.  Returns ``tile``, ``x0``, ``y0`` (int32 arrays), ``win``,
-    ``grid`` (blocks along x and y), ``smem_bytes`` and ``out`` (the
-    output rows and columns the launch writes).
+    its columns and rows; ``win`` (rows, cols) is the largest window of any
+    tile.  Returns ``tile`` (TH, TW), ``rows`` (R), ``cols``
+    (:data:`PRE_COLS`), ``threads`` (a block's), ``x0``, ``y0`` (int32
+    arrays), ``win``, ``grid`` (tiles along x and y), ``smem_bytes`` and
+    ``out`` (the output rows and columns the launch writes).
     """
-    xi, _, yi, _ = _tables(oh, ow, h, w, window)
+    xi, xic, yi, _ = _tables(oh, ow, h, w, window)
     oh, ow = yi.shape[0], xi.shape[0]
-    th, tw = min(PRE_TILE[0], oh), min(PRE_TILE[1], ow)
+    if np.abs(xic).max() >= 1 << 15:
+        raise ValueError("a column coefficient exceeds 16 bits")
+    r = max(1, min(PRE_ROWS, -(-oh // PRE_WARPS)))
+    tw = PRE_COLS
+    while tw < min(ow, PRE_TW):
+        tw *= 2
     while True:
+        th = PRE_WARPS * r
         x0, ww = _window_spans(xi, tw)
         y0, wh = _window_spans(yi, th)
         smem = pre_pass_smem_bytes((th, tw), (wh, ww))
-        if smem <= PRE_SMEM_BUDGET or th == tw == 1:
+        if smem <= PRE_SMEM_BUDGET:
             break
-        if th > 1:
-            th //= 2
-        else:
+        if r > 1:
+            r //= 2
+        elif tw > PRE_COLS:
             tw //= 2
-    return {"tile": (th, tw), "x0": x0, "y0": y0, "win": (wh, ww),
+        else:
+            raise ValueError(f"no K2 tile fits {PRE_SMEM_BUDGET} bytes of "
+                             f"shared memory for {(h, w)} -> {(oh, ow)}")
+    return {"tile": (th, tw), "rows": r, "cols": PRE_COLS,
+            "threads": 32 * PRE_WARPS, "x0": x0, "y0": y0, "win": (wh, ww),
             "grid": (len(x0), len(y0)), "smem_bytes": smem, "out": (oh, ow)}
 
 
@@ -202,7 +230,8 @@ def pre_upscale_fused(bgr_p: torch.Tensor, out_hw: tuple[int, int],
         runtime.check(runtime.library().pre_pass_u8(
             bgr_p.data_ptr(), *(t.data_ptr() for t in tabs), out.data_ptr(),
             b, h, w, *plan["out"], *plan["tile"], *plan["win"],
-            plan["smem_bytes"], runtime.current_stream()), "pre_pass_u8")
+            plan["smem_bytes"], runtime.current_stream()),
+            "pre_pass_u8")
     pre_upscale_fused.launches += 1
     return out
 

@@ -40,6 +40,7 @@ _SIGNATURES = {
     "srcnn_conv_f32": (_P, _LL, _P, _P, *(_I,) * 7, _P),
     "srcnn_conv_merge_u8": (_P, _P, _P, *(_I,) * 7, _P),
     "pre_pass_u8": (*(_P,) * 8, *(_I,) * 10, _P),
+    "pre_pass_resident_blocks": (_I, _P),
     "merge_ycrcb_bgr_u8": (_P, _P, _P, *(_I,) * 6, _LL, _P),
 }
 

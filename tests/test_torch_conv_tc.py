@@ -419,8 +419,9 @@ _K2_CASES = [((540, 960), s) for s in (2.0, 1.5, 3.0, 1.25, 0.75, 1.2)] + \
 
 @pytest.mark.parametrize("hw,s", _K2_CASES)
 def test_pre_pass_plan_windows_hold_every_tap(hw, s):
-    from srcnn_cpp_tpu_torch.ops.cuda_resize import (PRE_SMEM_BUDGET,
-                                                     pre_pass_plan,
+    from srcnn_cpp_tpu_torch.ops.cuda_resize import (PRE_COLS, PRE_ROWS,
+                                                     PRE_SMEM_BUDGET, PRE_TW,
+                                                     PRE_WARPS, pre_pass_plan,
                                                      pre_pass_smem_bytes)
     from srcnn_cpp_tpu_torch.ops.resize import cubic_tables, scaled_size
 
@@ -431,6 +432,11 @@ def test_pre_pass_plan_windows_hold_every_tap(hw, s):
     assert plan["smem_bytes"] == pre_pass_smem_bytes((th, tw), (wh, ww))
     assert plan["smem_bytes"] <= PRE_SMEM_BUDGET
     assert plan["grid"] == (-(-ow // tw), -(-oh // th))
+    # a warp spans the tile's columns, PRE_COLS per lane; the tile is
+    # PRE_WARPS * R rows tall; no scale here needs R cut below 2
+    assert tw == PRE_TW and plan["cols"] == PRE_COLS
+    assert th == PRE_WARPS * plan["rows"] and 1 < plan["rows"] <= PRE_ROWS
+    assert plan["threads"] == 32 * PRE_WARPS and th <= plan["threads"]
     for dst, src, t, org, span in ((ow, w, tw, plan["x0"], ww),
                                    (oh, h, th, plan["y0"], wh)):
         idx = cubic_tables(dst, src, torch.device("cpu"))[0].numpy()
@@ -438,41 +444,161 @@ def test_pre_pass_plan_windows_hold_every_tap(hw, s):
         assert ((idx >= o) & (idx < o + span) & (idx < src)).all()
 
 
-def _emulate_pre_pass(bgr, oh, ow, plan):
-    """K2's three steps over its plan, in NumPy (int32 and float32)."""
-    from srcnn_cpp_tpu_torch.ops.color import bgr2ycrcb_u8_planar
-    from srcnn_cpp_tpu_torch.ops.resize_tables import cv_cubic_tables
+def test_pre_pass_plan_at_the_main_geometry():
+    # x2, 540x960 -> 1080x1920: 128-column tiles of 8 warps x 8 rows, so 15
+    # x 17 tiles an image; 36 window rows and 68 columns at most; two
+    # blocks' shared memory (and 1 KB each of the system's) fit an SM
+    from srcnn_cpp_tpu_torch.ops.cuda_resize import pre_pass_plan
+
+    plan = pre_pass_plan(1080, 1920, 540, 960)
+    assert plan["tile"] == (64, 128) and plan["rows"] == 8
+    assert plan["grid"] == (15, 17)
+    assert plan["win"] == (36, 68)
+    assert 2 * (plan["smem_bytes"] + 1024) <= 228 * 1024
+
+
+@pytest.mark.parametrize("hw,s", [((64, 64), 8.0), ((540, 960), 4.0),
+                                  ((5, 7), 3.0), ((400, 300), 0.1),
+                                  ((2000, 40), 0.05)])
+def test_pre_pass_plan_tiles_fit_a_block(hw, s):
+    # every plan's tile is WARPS * R rows, R <= PRE_ROWS, and no taller than
+    # a block has threads (the kernel stages a row's taps a thread): the
+    # launcher refuses any other
+    from srcnn_cpp_tpu_torch.ops.cuda_resize import (PRE_ROWS, PRE_WARPS,
+                                                     pre_pass_plan)
+    from srcnn_cpp_tpu_torch.ops.resize import scaled_size
+
+    h, w = hw
+    ow, oh = scaled_size(w, h, s)
+    plan = pre_pass_plan(oh, ow, h, w)
+    th = plan["tile"][0]
+    assert th == PRE_WARPS * plan["rows"] and 1 <= plan["rows"] <= PRE_ROWS
+    assert th <= plan["threads"]
+
+
+def _byte_perm(x, y, s):
+    """CUDA's ``__byte_perm(x, y, s)`` on uint32 arrays."""
+    src = np.stack([(x >> np.uint32(8 * i)) & np.uint32(255) for i in range(4)]
+                   + [(y >> np.uint32(8 * i)) & np.uint32(255)
+                      for i in range(4)])
+    out = np.zeros(np.broadcast(x, y).shape, np.uint32)
+    for i in range(4):
+        out |= src[(s >> 4 * i) & 7] << np.uint32(8 * i)
+    return out
+
+
+def _dp2a(a, b, c, hi):
+    """PTX ``dp2a.{lo,hi}.s32.u32``: c + the signed 16-bit halves of a times
+    bytes 0,1 (lo) or 2,3 (hi) of b."""
+    a = a.astype(np.uint32)
+    a0 = (a & np.uint32(0xffff)).astype(np.uint16).view(np.int16)
+    a1 = (a >> np.uint32(16)).astype(np.uint16).view(np.int16)
+    sh = np.uint32(16 if hi else 0)
+    b0 = ((b >> sh) & np.uint32(255)).astype(np.int64)
+    b1 = ((b >> (sh + np.uint32(8))) & np.uint32(255)).astype(np.int64)
+    return (c + a0.astype(np.int64) * b0 + a1.astype(np.int64) * b1)
+
+
+def _round_u8(v):
+    """K2's rounding form: clamp in float, add 1.5 * 2**23 (round half to
+    even), the low byte of the float's bits."""
+    v = np.minimum(np.maximum(v.astype(np.float32), np.float32(0)),
+                   np.float32(255))
+    return (v + np.float32(12582912.0)).view(np.uint32) & np.uint32(255)
+
+
+def _ycc_word(b, g, r):
+    """The window's word {Y, Cr, Cb, 0} of each pixel (int32 BGR)."""
+    y = np.clip((b * 1868 + g * 9617 + r * 4899 + 8192) >> 14, 0, 255)
+    cr = np.clip(((r - y) * 11682 + (128 << 14) + 8192) >> 14, 0, 255)
+    cb = np.clip(((b - y) * 9241 + (128 << 14) + 8192) >> 14, 0, 255)
+    return (y | cr << 8 | cb << 16).astype(np.uint32)
+
+
+def _emulate_pre_pass(bgr, oh, ow, plan, window=None):
+    """K2 over its plan, step by step in NumPy: per tile, the window of
+    YCrCb words (4-byte loads from a word-aligned column where W % 4 == 0),
+    the horizontal dp2a sums converted to float32 once, then per warp and
+    lane R rows of 4 columns (the last lane's ragged), each row's four tap
+    rows, the vertical float32 chain and the rounding form."""
+    from srcnn_cpp_tpu_torch.ops.cuda_resize import PRE_COLS, _tables
 
     b, _, h, w = bgr.shape
-    xi, xic, _ = cv_cubic_tables(ow, w)
-    yi, _, yfc = cv_cubic_tables(oh, h)
-    (th, tw), (wh, ww) = plan["tile"], plan["win"]
-    out = np.zeros((b, 3, oh, ow), np.uint8)
+    xi, xic, yi, yfc = _tables(oh, ow, h, w, window)
+    (th_, tw_), (wh_, ww_), r_ = plan["tile"], plan["win"], plan["rows"]
+    oh, ow = plan["out"]
+    vec = w % 4 == 0
+    src = bgr.astype(np.int32)
+    out = np.full((b, 3, oh, ow), -1, np.int32)
     for by, y0 in enumerate(plan["y0"]):
         for bx, x0 in enumerate(plan["x0"]):
-            win = bgr[:, :, y0:y0 + wh, x0:x0 + ww]        # step 1
-            ycc = bgr2ycrcb_u8_planar(torch.from_numpy(
-                np.ascontiguousarray(win))).numpy().astype(np.int32)
-            oxs = np.arange(bx * tw, min(ow, (bx + 1) * tw))
-            hs = sum(ycc[..., xi[oxs, j] - x0] * xic[oxs, j]   # step 2
-                     for j in range(4))
-            for oy in range(by * th, min(oh, (by + 1) * th)):  # step 3
-                r = [hs[:, :, yi[oy, k] - y0].astype(np.float32)
-                     * yfc[oy, k] for k in range(4)]
-                v = r[3]
-                for k in (2, 1, 0):
-                    v = (r[k] + v).astype(np.float32)
-                out[:, :, oy, oxs] = np.clip(np.rint(v), 0, 255)
-    return out
+            ox0, oy0 = bx * tw_, by * th_
+            tw, th = min(tw_, ow - ox0), min(th_, oh - oy0)
+            wh = min(wh_, h - y0)
+            xb = x0 & ~3 if vec else x0
+            wc = min(ww_ + x0 - xb, w - xb)
+            n = -(-wc // 4) * 4 if vec else wc          # step 1
+            assert xb + n <= w and n <= (ww_ + 6) & ~3
+            win = _ycc_word(*(src[:, k, y0:y0 + wh, xb:xb + n]
+                              for k in range(3)))
+            hs = np.full((b, 3, wh_, tw_), np.nan, np.float32)   # step 2
+            c = np.arange(tw)
+            cx = xi[ox0 + c] - xb
+            k = xic[ox0 + c].astype(np.int64)
+            k01 = ((k[:, 0] & 0xffff) | (k[:, 1] << 16)).astype(np.uint32)
+            k23 = ((k[:, 2] & 0xffff) | (k[:, 3] << 16)).astype(np.uint32)
+            wk = [win[:, :, cx[:, j]] for j in range(4)]
+            p01, p23 = (_byte_perm(wk[0], wk[1], 0x5140),
+                        _byte_perm(wk[2], wk[3], 0x5140))
+            q01, q23 = (_byte_perm(wk[0], wk[1], 0x0062),
+                        _byte_perm(wk[2], wk[3], 0x6200))
+            sums = (_dp2a(k01, p01, _dp2a(k23, p23, 0, False), False),
+                    _dp2a(k01, p01, _dp2a(k23, p23, 0, True), True),
+                    _dp2a(k01, q01, _dp2a(k23, q23, 0, True), False))
+            for ch, s in enumerate(sums):
+                assert np.abs(s).max() < 1 << 24      # exact in float32
+                hs[:, ch, :wh, :tw] = s.astype(np.float32)
+            # step 3: lane l owns columns 4l..4l+3 (the last lane with
+            # columns may be ragged), warp v rows v*R .. v*R+R-1; columns
+            # past the tile's edge read sums step 2 never wrote (NaN here)
+            # and are not stored
+            lanes = np.arange(0, tw, PRE_COLS)
+            cols = lanes[:, None] + np.arange(PRE_COLS)[None, :]
+            keep = cols < tw
+            colsc = np.minimum(cols, tw_ - 1)
+            for rb in range(0, th, r_):
+                for r in range(rb, min(rb + r_, th)):
+                    oy = oy0 + r
+                    taps = [hs[:, :, int(t) - y0, :][..., colsc]
+                            for t in yi[oy]]
+                    f = yfc[oy]
+                    v = taps[3] * f[3]
+                    for j in (2, 1, 0):
+                        v = (taps[j] * f[j]).astype(np.float32) + v
+                    u = _round_u8(v.astype(np.float32))
+                    word = _byte_perm(_byte_perm(u[..., 0], u[..., 1], 0x0040),
+                                      _byte_perm(u[..., 2], u[..., 3], 0x0040),
+                                      0x5410)
+                    for j in range(PRE_COLS):
+                        val = (word >> np.uint32(8 * j)) & np.uint32(255)
+                        cs = cols[:, j][keep[:, j]]
+                        out[:, :, oy, ox0 + cs] = val[..., keep[:, j]]
+    assert out.min() >= 0, "an output pixel was never written"
+    return out.astype(np.uint8)
 
 
 @pytest.mark.parametrize("hw,s", [((72, 80), 2.0), ((90, 100), 0.75),
                                   ((70, 90), 1.2), ((40, 50), 2.75),
-                                  ((400, 300), 0.1)])
+                                  ((400, 300), 0.1),
+                                  ((60, 100), 1.5),     # ow % 4 == 2
+                                  ((101, 77), 2.75),    # odd W, ow % 4 == 3
+                                  ((300, 200), 0.2)])   # R = 1: no reuse
 def test_pre_pass_window_emulation_is_bit_exact(hw, s):
-    # several blocks on each axis; at x0.75 and x0.1 the plan halves the
-    # tile's rows to fit its shared memory
-    from srcnn_cpp_tpu_torch.ops.cuda_resize import (PRE_TILE, pre_pass_plan,
+    # several tiles on at least one axis; at x0.75 the plan halves R to
+    # fit its shared memory, and at x0.2 and x0.1 the window's row span
+    # forces R = 1
+    from srcnn_cpp_tpu_torch.ops.cuda_resize import (PRE_COLS, PRE_ROWS,
+                                                     pre_pass_plan,
                                                      pre_upscale_plain)
     from srcnn_cpp_tpu_torch.ops.resize import scaled_size
 
@@ -481,20 +607,78 @@ def test_pre_pass_window_emulation_is_bit_exact(hw, s):
     bgr = _u8((2, 3, h, w), h * w)
     plan = pre_pass_plan(oh, ow, h, w)
     assert min(plan["grid"]) >= 1 and max(plan["grid"]) >= 2
-    if s < 1:
-        assert plan["tile"][0] < min(PRE_TILE[0], oh)
+    if s <= 0.25:
+        assert plan["rows"] == 1
+    elif s < 1:
+        assert 1 <= plan["rows"] < PRE_ROWS
+    else:
+        assert plan["rows"] == PRE_ROWS
+    if hw in ((60, 100), (101, 77)):
+        assert ow % PRE_COLS != 0
     got = _emulate_pre_pass(bgr, oh, ow, plan)
     ref = pre_upscale_plain(torch.from_numpy(bgr), (oh, ow)).numpy()
     assert np.array_equal(got, ref)
 
 
+def test_pre_pass_window_emulation_of_a_pre_window():
+    # a PreWindow plan: output rows 10..100 and columns 30..150 of the x2
+    # resize of 72x80, read from the input block its taps reach (origin
+    # (3, 13), an unaligned column); equal to the slice of the whole
+    from srcnn_cpp_tpu_torch.ops.cuda_resize import (PreWindow, pre_pass_plan,
+                                                     pre_upscale_plain,
+                                                     window_source)
+
+    (s0, s1), (t0, t1) = window_source((144, 160), (72, 80), (10, 100),
+                                       (30, 150))
+    assert t0 % 4 != 0
+    bgr = _u8((2, 3, 72, 80), 7)
+    block = np.ascontiguousarray(bgr[:, :, s0:s1, t0:t1])
+    win = PreWindow((72, 80), (10, 100), (30, 150), (s0, t0))
+    plan = pre_pass_plan(144, 160, *block.shape[2:], win)
+    assert plan["out"] == (90, 120)
+    got = _emulate_pre_pass(block, 144, 160, plan, win)
+    ref = pre_upscale_plain(torch.from_numpy(bgr), (144, 160)).numpy()
+    assert np.array_equal(got, ref[:, :, 10:100, 30:150])
+
+
+def test_pre_pass_rounding_form_is_rint_then_clip():
+    # clamp in float, add 1.5 * 2**23, low byte == clip(rint(v), 0, 255)
+    # over float32 values in [-2**24, 2**24] and every exact .5 in [-1, 256]
+    rng = np.random.default_rng(0)
+    dense = np.concatenate([
+        rng.uniform(-2.0 ** 24, 2.0 ** 24, 1 << 20),
+        rng.uniform(-2.0, 258.0, 1 << 20),
+        np.arange(-2 ** 12, 2 ** 12, 1 / 64),
+        np.arange(-1, 256.5, 0.5),
+        [-2.0 ** 24, 2.0 ** 24, -0.0, 0.0, 254.5, 255.5, 255.49998, -0.5]])
+    v = dense.astype(np.float32)
+    v = np.concatenate([v, np.nextafter(v, np.float32(np.inf)),
+                        np.nextafter(v, np.float32(-np.inf))])
+    want = np.clip(np.rint(v), 0, 255).astype(np.uint32)
+    assert np.array_equal(_round_u8(v), want)
+
+
 def test_pre_pass_plan_mirrors_the_cuda_source():
-    from srcnn_cpp_tpu_torch.ops.cuda_resize import PRE_SMEM_BUDGET, PRE_TILE
+    from srcnn_cpp_tpu_torch.ops.cuda_resize import (PRE_COLS, PRE_ROWS,
+                                                     PRE_SMEM_BUDGET, PRE_TW,
+                                                     PRE_WARPS,
+                                                     pre_pass_smem_bytes)
 
     src = (REPO / "srcnn_cpp_tpu_torch/csrc/pre_pass.cu").read_text()
-    bx = int(re.search(r"\bBX = (\d+)", src).group(1))
-    assert PRE_TILE[1] <= bx           # one thread column per tile column
-    assert PRE_SMEM_BUDGET <= 48 * 1024
+    const = {k: int(re.search(rf"\b{k} = (\d+)", src).group(1))
+             for k in ("WARPS", "CPT")}
+    assert (const["WARPS"], const["CPT"]) == (PRE_WARPS, PRE_COLS)
+    assert "TW_MAX = 32 * CPT" in src and PRE_TW == 32 * PRE_COLS
+    # a tile's rows are staged one a thread: the launcher refuses a tile
+    # taller than a block, and no plan asks for one
+    assert "TH > THREADS" in src and "THREADS = 32 * WARPS" in src
+    assert PRE_WARPS * PRE_ROWS <= 32 * PRE_WARPS
+    assert PRE_SMEM_BUDGET <= int(re.search(
+        r"SMEM_MAX = (\d+) \* 1024", src).group(1)) * 1024
+    # the launcher refuses any other shared-memory size than the plan's
+    assert "3 * WH * TW * 4 + WH * ((WW + 6) & ~3) * 4 + 2 * TH * 32" in src
+    assert pre_pass_smem_bytes((64, 128), (36, 68)) == \
+        3 * 36 * 128 * 4 + 36 * 72 * 4 + 2 * 64 * 32
 
 
 def test_kernel_ab_loads_a_checkout_beside_the_package():

@@ -247,7 +247,12 @@ def test_cuda_srcnn_matches_plain(cuda, cuda_weights, shape):
                                      ((2, 3, 540, 960), 1.5),
                                      ((2, 3, 540, 960), 1.2),
                                      ((2, 3, 540, 960), 0.75),
-                                     ((1, 3, 333, 517), 2.75)])
+                                     ((1, 3, 333, 517), 2.75),
+                                     ((2, 3, 540, 960), 3.0),
+                                     ((2, 3, 540, 960), 1.25),
+                                     ((2, 3, 540, 960), 0.1),
+                                     ((3, 3, 101, 77), 2.75),
+                                     ((1, 3, 540, 960), 2.0)])
 def test_cuda_pre_pass_matches_plain(cuda, shape, s):
     from srcnn_cpp_tpu_torch.ops.cuda_resize import (pre_upscale_fused,
                                                      pre_upscale_plain)

@@ -1,6 +1,7 @@
 """PyTorch port, package surface: imports, wrapper validation, build, CLI."""
 
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -161,10 +162,53 @@ def test_kernel_signatures_cover_every_entry_point():
 def test_kernel_sources_use_unfused_rounding_in_the_vertical_pass():
     # nvcc contracts a*b+c into an FMA by default; the pre-pass's bit
     # identity with OpenCV needs separately rounded products and sums
+    # (every float product and sum of the vertical chain is an _rn
+    # intrinsic, and so is the add of the rounding form)
     src = (REPO / "srcnn_cpp_tpu_torch/csrc/pre_pass.cu").read_text()
     code = "\n".join(line for line in src.splitlines()
                      if not line.lstrip().startswith("//"))
-    assert code.count("__fmul_rn(") == 4 and code.count("__fadd_rn(") == 3
+    body = re.search(r"uint32_t chain\(float h0.*?\n}\n", code, re.S).group(0)
+    body = body[body.index("{"):]
+    assert body.count("__fmul_rn(") == 4 and body.count("__fadd_rn(") == 3
+    assert not re.search(r"[^_\w](\*|\+)[^+]", body.replace("__f", "")), body
+    rnd = re.search(r"uint32_t round_u8\(float v\).*?\n}\n", code, re.S).group(0)
+    assert "__fadd_rn(" in rnd and "12582912.f" in code
+    assert code.count("chain(h0.") == 4      # one chain per column
+
+
+def test_sass_counts_reads_one_kernel_of_cuobjdump(monkeypatch, tmp_path):
+    # the static opcode counts of one kernel's SASS, as chip_smoke.py phase 1
+    # and kernel_ab print them for K2 (predicated and uniform forms counted);
+    # None where cuobjdump is absent or fails
+    import subprocess as sp
+
+    from srcnn_cpp_tpu_torch import kernel_ab
+
+    dump = "\n".join([
+        "\tFunction : _ZN12_GLOBAL__N_113merge_kernelEv",
+        "        /*0000*/                   I2F R1, R2 ;   /* 0x0 */",
+        "\tFunction : _ZN12_GLOBAL__N_115pre_pass_kernelEPKh",
+        "        /*0000*/                   LDG.E.U8 R2, desc[UR4][R2.64] ;",
+        "        /*0010*/              @!P0 STG.E [R4.64], R7 ;",
+        "        /*0020*/                   I2F R1, R2 ;",
+        "        /*0028*/                   I2FP.F32.S32 R1, R2 ;",
+        "        /*0030*/               @P1 LDS.128 R8, [R3] ;",
+        "        /*0040*/                   LDS R8, [R3+0x4] ;",
+        "        /*0050*/                   IDP.2A.LO.S16.U8 R1, R2, R3, RZ ;",
+        "        /*0060*/                   FADD R1, R2, R3 ;",
+    ])
+    rc = [0]
+    monkeypatch.setattr(kernel_ab.shutil, "which", lambda name: "cuobjdump")
+    monkeypatch.setattr(kernel_ab.subprocess, "run", lambda *a, **k:
+                        sp.CompletedProcess(a, rc[0], dump, ""))
+    got = kernel_ab.sass_counts(tmp_path / "lib.so", "pre_pass_kernel")
+    assert got == {"I2F": 1, "I2FP": 1, "F2I": 0, "FRND": 0, "IDP": 1,
+                   "LDS": 2, "STS": 0, "LDG": 1, "STG": 1}
+    rc[0] = 1
+    assert kernel_ab.sass_counts(tmp_path / "lib.so", "pre_pass_kernel") is None
+    monkeypatch.setattr(kernel_ab.shutil, "which", lambda name: None)
+    monkeypatch.setattr(kernel_ab, "Path", lambda p: tmp_path / "absent")
+    assert kernel_ab.sass_counts(tmp_path / "lib.so", "pre_pass_kernel") is None
 
 
 def test_packed_size_constant_matches_the_cuda_source():
