@@ -47,12 +47,13 @@ read just after:
   bit-exact and the trainer's losses equal to one process's (18; over
   NCCL with one card per process where there are two cards); and
   ``scaling_efficiency`` as one card's tiling overhead (19);
-* phase 20, ``utils.profiling`` on the main path: ``throughput`` beside
-  phase 6's CUDA-event rate, ``StageTimer`` over the H2D, device, relayout
-  and D2H stages of ``upscale_bgr_batch``, in turns with the planar fetch
-  and host transpose it made before, and a ``trace`` that must name the
-  path's three kernels, show no device-to-host copy between K2 and K1 and
-  exactly one after K3, of the HWC result's bytes;
+* phase 20, ``utils.profiling`` on the main path: a ``trace`` of
+  ``upscale_bgr_batch`` on host arrays that must name the path's three
+  kernels, show no device-to-host copy between K2 and K1 and exactly one
+  after K3, of the HWC result's bytes, inside the program's
+  ``srcnn.entry.fetch`` span, and K2's, K1's and K3's launches inside its
+  ``srcnn.pipeline`` span: the program's spans and the card's activities
+  on one clock;
 * phase 21, ``upscale_bgr_batch`` with a CUDA tensor: a CUDA tensor out,
   bit-equal to ``upscale_planar`` after the permute, one launch of each
   kernel, no device-to-host copy in its trace; timed beside
@@ -481,7 +482,7 @@ def main() -> int:
     timed(phase_sharded_train, extra)
     timed(phase_two_processes, extra)
     timed(phase_scaling, extra)
-    timed(phase_profiling, extra, frames, mpix / (dev_ms / 1e3))
+    timed(phase_profiling, extra, frames)
     timed(phase_device_entry, extra, frames)
     timed(phase_stream_tensors, extra, synthetic_fps)
     timed(phase_single_8k_mesh_tensor, extra,
@@ -1392,57 +1393,23 @@ def d2h_copies(events: list) -> list:
             and "DtoH" in ev.get("name", "")]
 
 
-def phase_profiling(e: Extra, frames: np.ndarray, event_mps: float) -> None:
-    from srcnn_cpp_tpu_torch.pipeline import upscale_bgr_batch, upscale_planar
-    from srcnn_cpp_tpu_torch.utils.profiling import StageTimer, throughput
+def spans_named(events: list, name: str) -> list:
+    return [ev for ev in events if ev.get("cat") == "user_annotation"
+            and ev.get("name") == name]
 
-    say(f"phase 20: utils.profiling on the main path, [{BATCH},3,{IH},{IW}] "
-        f"x{SCALE:g}")
+
+def within(inner: dict, outer: dict) -> bool:
+    """``inner``'s interval lies in ``outer``'s (trace microseconds)."""
+    return (outer["ts"] <= inner["ts"]
+            and inner["ts"] + inner["dur"] <= outer["ts"] + outer["dur"])
+
+
+def phase_profiling(e: Extra, frames: np.ndarray) -> None:
+    from srcnn_cpp_tpu_torch.pipeline import upscale_bgr_batch
+
+    say(f"phase 20: utils.profiling on the main path, [{BATCH},{IH},{IW},3] "
+        f"host arrays x{SCALE:g}")
     w = e.weights
-    mps = throughput(lambda: upscale_planar(e.x, w, (OH, OW)),
-                     BATCH * OH * OW)
-    say(f"  throughput(upscale_planar): {mps:.2f} MP/s (best of 3 runs of 6 "
-        f"calls, each fenced by a host fetch of its last output); CUDA "
-        f"events, phase 6: {event_mps:.2f} MP/s ({e.gpu})")
-
-    def staged(timer: StageTimer, old: bool = False) -> np.ndarray:
-        # upscale_bgr_batch's steps on a host array, one span each; with
-        # ``old`` the planar fetch and host transpose it made before its
-        # output relayout moved to the card
-        st = {}
-        with timer.span("H2D", fetch=lambda: st["x"][:1, :1, :1, :1]):
-            st["x"] = torch.from_numpy(np.ascontiguousarray(
-                np.moveaxis(frames, -1, 1))).to("cuda")
-        with timer.span("device", fetch=lambda: st["y"][:1, :1, :1, :1]):
-            st["y"] = upscale_planar(st["x"], w, (OH, OW))
-        if old:
-            with timer.span("D2H of planes"):
-                st["p"] = st["y"].cpu().numpy()
-            with timer.span("host transpose"):
-                return np.ascontiguousarray(np.moveaxis(st["p"], 1, -1))
-        with timer.span("relayout", fetch=lambda: st["o"][:1, :1, :1, :1]):
-            st["o"] = st["y"].permute(0, 2, 3, 1).contiguous()
-        with timer.span("D2H"):
-            return st["o"].cpu().numpy()
-
-    staged(StageTimer())
-    staged(StageTimer(), old=True)
-    now, before = StageTimer(), StageTimer()
-    out, _ = e.drive("StageTimer over upscale_bgr_batch's stages",
-                     lambda: staged(now), MAIN_WRAPPERS)
-    outs = [out, staged(before, old=True), staged(before, old=True),
-            staged(now)]
-    ref = upscale_bgr_batch(frames, SCALE, w, "cuda")
-    if not all(np.array_equal(o, ref) for o in outs):
-        raise AssertionError("a staged call differs from upscale_bgr_batch")
-    for tag, timer in (("now", now), ("before (planar fetch, host "
-                                      "transpose)", before)):
-        total = sum(timer.spans.values())
-        say(f"  StageTimer, {tag}, per call (2 calls each, in turns): "
-            + ", ".join(f"{k} {v / 2:.3f} ms ({v / total:.1%})"
-                        for k, v in timer.spans.items())
-            + f"; total {total / 2:.3f} ms ({e.gpu})")
-
     size, events, found = trace_events(
         lambda: upscale_bgr_batch(frames, SCALE, w, "cuda"))
     # between K2 and K1 the main path moves nothing through the host
@@ -1464,6 +1431,32 @@ def phase_profiling(e: Extra, frames: np.ndarray, event_mps: float) -> None:
             or d2h[0].get("args", {}).get("bytes") != BATCH * OH * OW * 3:
         raise AssertionError(f"expected one device-to-host copy of "
                              f"{BATCH * OH * OW * 3} bytes after K3")
+    # the program's spans share the device's clock: the copy lies in the
+    # fetch's span, and each kernel's launch in the pipeline's
+    fetch = spans_named(events, "srcnn.entry.fetch")
+    pipe = spans_named(events, "srcnn.pipeline")
+    if len(fetch) != 1 or len(pipe) != 1:
+        raise AssertionError(f"expected one srcnn.entry.fetch and one "
+                             f"srcnn.pipeline span, got {len(fetch)} and "
+                             f"{len(pipe)}")
+    fetch, pipe = fetch[0], pipe[0]
+    say(f"  trace(): the copy starts {d2h[0]['ts'] - fetch['ts']:.1f} us "
+        f"into srcnn.entry.fetch and ends "
+        f"{fetch['ts'] + fetch['dur'] - d2h[0]['ts'] - d2h[0]['dur']:.1f} us"
+        f" before its end")
+    if not within(d2h[0], fetch):
+        raise AssertionError("the device-to-host copy lies outside "
+                             "srcnn.entry.fetch")
+    launches = {ev["args"]["correlation"]: ev for ev in events
+                if ev.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "correlation" in ev.get("args", {})}
+    for k, kernel in (("K2", k2), ("K1", k1), ("K3", k3)):
+        launch = launches.get(kernel.get("args", {}).get("correlation"))
+        if launch is None or not within(launch, pipe):
+            raise AssertionError(f"{k}'s launch is not inside srcnn.pipeline"
+                                 f" ({launch and launch['name']})")
+    say(f"  trace(): K2, K1, K3 launched inside srcnn.pipeline "
+        f"({pipe['dur']:.1f} us of host time)")
     say(f"  trace(): {size} bytes of Chrome trace JSON, {len(events)} "
         f"events; " + "; ".join(
             f"{k}: {len(v)} event(s), {sum(ev.get('dur', 0) for ev in v):.1f}"

@@ -19,6 +19,7 @@ import functools
 import torch
 
 from .. import runtime
+from ..utils.profiling import span
 from .color import ycrcb2bgr_u8_planar
 
 __all__ = ["merge_ycrcb_to_bgr_fused", "merge_plain", "merge_plan"]
@@ -64,8 +65,9 @@ def _launch_args(b: int, h: int, w: int, index: int,
     """:func:`merge_plan`'s launcher arguments on CUDA device ``index`` (the
     current one), computed once per geometry and alignment: K3's device time
     is shorter than its wrapper's host time, so the wrapper stays lean."""
-    plan = merge_plan(b, h, w, runtime.num_sms(), residues)
-    return plan["grid"], plan["block"], plan["vec"], plan["per_frame"]
+    with span("srcnn.build.k3_args"):
+        plan = merge_plan(b, h, w, runtime.num_sms(), residues)
+        return plan["grid"], plan["block"], plan["vec"], plan["per_frame"]
 
 
 def merge_plain(y_sr: torch.Tensor, up: torch.Tensor) -> torch.Tensor:

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from .. import runtime
+from ..utils.profiling import span
 from .color import bgr2ycrcb_u8_planar
 from .resize import resize_bicubic_u8, resize_taps_u8
 from .resize_tables import cv_cubic_tables
@@ -175,9 +176,10 @@ def pre_pass_plan(oh: int, ow: int, h: int, w: int,
 def _device_plan(oh: int, ow: int, h: int, w: int, window, device: torch.device):
     """:func:`pre_pass_plan` and its tables on ``device``, per geometry and
     window: ``(plan, (xi, xic, yi, yfc, x0, y0))``."""
-    plan = pre_pass_plan(oh, ow, h, w, window)
-    tabs = (*_tables(oh, ow, h, w, window), plan["x0"], plan["y0"])
-    return plan, tuple(torch.from_numpy(t).to(device) for t in tabs)
+    with span("srcnn.build.k2_plan"):
+        plan = pre_pass_plan(oh, ow, h, w, window)
+        tabs = (*_tables(oh, ow, h, w, window), plan["x0"], plan["y0"])
+        return plan, tuple(torch.from_numpy(t).to(device) for t in tabs)
 
 
 def pre_upscale_plain(bgr_p: torch.Tensor, out_hw: tuple[int, int],

@@ -38,6 +38,7 @@ import weakref
 import torch
 
 from .. import runtime
+from ..utils.profiling import span
 from .color import ycrcb2bgr_u8_planar
 from ..weights.loader import CANONICAL, family_shapes
 from .srcnn import srcnn_y, srcnn_y_f32
@@ -166,7 +167,8 @@ def pack_weights(weights) -> torch.Tensor:
     hit = _PACKED.get(weights)
     if hit is None or hit[0] != key:
         _pack.calls += 1
-        hit = (key, _pack(weights).to(weights.conv1_w.device))
+        with span("srcnn.build.weights"):
+            hit = (key, _pack(weights).to(weights.conv1_w.device))
         _PACKED[weights] = hit
     return hit[1]
 
@@ -203,17 +205,18 @@ def _plan(batch: int, h: int, w: int, num_sms: int) -> tuple[int, int, int]:
     """``(segment rows, units, grid)``: segments as tall as the card's
     consumers allow, their count chosen for the fewest rows per consumer
     (waves of units x rows of a unit, with 4 halo rows)."""
-    sx = -(-w // STRIP)
-    best = None
-    most = min(h, -(-8 * CONSUMERS * num_sms // (batch * sx)))
-    for nseg in range(1, max(1, most) + 1):
-        seg_h = -(-h // nseg)
-        units = batch * sx * -(-h // seg_h)
-        grid = min(num_sms, units)
-        cost = -(-units // (CONSUMERS * grid)) * (seg_h + 4)
-        if best is None or cost < best[0]:
-            best = (cost, seg_h, units, grid)
-    return best[1:]
+    with span("srcnn.build.k1_plan"):
+        sx = -(-w // STRIP)
+        best = None
+        most = min(h, -(-8 * CONSUMERS * num_sms // (batch * sx)))
+        for nseg in range(1, max(1, most) + 1):
+            seg_h = -(-h // nseg)
+            units = batch * sx * -(-h // seg_h)
+            grid = min(num_sms, units)
+            cost = -(-units // (CONSUMERS * grid)) * (seg_h + 4)
+            if best is None or cost < best[0]:
+                best = (cost, seg_h, units, grid)
+        return best[1:]
 
 
 def conv_tile_plan(batch: int, h: int, w: int, num_sms: int) -> dict:

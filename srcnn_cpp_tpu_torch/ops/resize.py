@@ -31,6 +31,7 @@ import math
 import numpy as np
 import torch
 
+from ..utils.profiling import span
 from .resize_tables import cv_cubic_tables
 
 __all__ = ["scaled_size", "cubic_tables", "resize_bicubic_u8",
@@ -56,8 +57,9 @@ def cubic_tables(dst: int, src: int, device: torch.device):
 
     The cache hands the same tensors to every caller: they are read-only.
     """
-    return tuple(torch.from_numpy(np.ascontiguousarray(t)).to(device)
-                 for t in cv_cubic_tables(dst, src))
+    with span("srcnn.build.cubic_tables"):
+        return tuple(torch.from_numpy(np.ascontiguousarray(t)).to(device)
+                     for t in cv_cubic_tables(dst, src))
 
 
 def resize_bicubic_u8(img: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:

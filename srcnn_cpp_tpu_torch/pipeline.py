@@ -28,6 +28,7 @@ from .ops.cuda_merge import merge_ycrcb_to_bgr_fused
 from .ops.cuda_resize import pre_upscale_fused
 from .ops.cuda_srcnn import srcnn_y_fused
 from .ops.resize import resize_bicubic_u8, scaled_size
+from .utils.profiling import span
 from .weights import SRCNNWeights, weights_on
 
 
@@ -43,9 +44,10 @@ def upscale_planar(bgr_p: torch.Tensor, weights: SRCNNWeights,
                    out_hw: tuple[int, int]) -> torch.Tensor:
     """Planar BGR u8 ``[B, 3, H, W]`` -> planar BGR u8 ``[B, 3, oh, ow]``,
     on the device of ``bgr_p`` (``weights`` must live there too)."""
-    up = pre_upscale_fused(bgr_p, out_hw)        # YCrCb [B, 3, oh, ow]
-    y_sr = srcnn_y_fused(up[:, 0], weights)      # [B, oh, ow]
-    return merge_ycrcb_to_bgr_fused(y_sr, up)
+    with span("srcnn.pipeline"):
+        up = pre_upscale_fused(bgr_p, out_hw)        # YCrCb [B, 3, oh, ow]
+        y_sr = srcnn_y_fused(up[:, 0], weights)      # [B, oh, ow]
+        return merge_ycrcb_to_bgr_fused(y_sr, up)
 
 
 def upscale_bgr_batch(bgr_u8, scale: float, weights: SRCNNWeights | None = None,
@@ -61,19 +63,32 @@ def upscale_bgr_batch(bgr_u8, scale: float, weights: SRCNNWeights | None = None,
 
     Output dims are ``floor(float32(dim) * float32(scale))``, matching the
     reference (srcnn.cpp:573-575).
+
+    Under a ``torch.profiler`` session the call records ``srcnn.entry``
+    and, nested in it, one span a stage (:func:`.utils.profiling.span`).
     """
     device = torch.device(device)
-    if isinstance(bgr_u8, torch.Tensor):
-        planar = u8_tensor(bgr_u8).to(device).permute(0, 3, 1, 2).contiguous()
-    else:
-        bgr = np.asarray(bgr_u8, dtype=np.uint8)
-        planar = torch.from_numpy(np.ascontiguousarray(
-            np.moveaxis(bgr, -1, 1))).to(device)
-    h, w = planar.shape[2:]
-    ow, oh = scaled_size(w, h, scale)
-    out = upscale_planar(planar, weights_on(weights, device), (oh, ow))
-    out = out.permute(0, 2, 3, 1).contiguous()
-    return out if isinstance(bgr_u8, torch.Tensor) else out.cpu().numpy()
+    tensor = isinstance(bgr_u8, torch.Tensor)
+    with span("srcnn.entry"):
+        if tensor:
+            with span("srcnn.entry.to_planar"):
+                planar = u8_tensor(bgr_u8).to(device).permute(
+                    0, 3, 1, 2).contiguous()
+        else:
+            with span("srcnn.entry.host_transpose"):
+                bgr = np.ascontiguousarray(np.moveaxis(
+                    np.asarray(bgr_u8, dtype=np.uint8), -1, 1))
+            with span("srcnn.entry.h2d"):
+                planar = torch.from_numpy(bgr).to(device)
+        h, w = planar.shape[2:]
+        ow, oh = scaled_size(w, h, scale)
+        out = upscale_planar(planar, weights_on(weights, device), (oh, ow))
+        with span("srcnn.entry.to_hwc"):
+            out = out.permute(0, 2, 3, 1).contiguous()
+        if tensor:
+            return out
+        with span("srcnn.entry.fetch"):
+            return out.cpu().numpy()
 
 
 def upscale_bgr(bgr_u8, scale: float, weights: SRCNNWeights | None = None,

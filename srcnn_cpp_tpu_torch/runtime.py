@@ -125,14 +125,17 @@ def build() -> tuple[Path, float, str]:
 @functools.lru_cache(maxsize=1)
 def library() -> ctypes.CDLL:
     """The loaded kernel library (built on first call)."""
-    lib = ctypes.CDLL(str(build()[0]))
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    lib.srcnn_cuda_error_string.argtypes = (ctypes.c_int,)
-    lib.srcnn_cuda_error_string.restype = ctypes.c_char_p
-    return lib
+    from .utils.profiling import span
+
+    with span("srcnn.build.library"):
+        lib = ctypes.CDLL(str(build()[0]))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.srcnn_cuda_error_string.argtypes = (ctypes.c_int,)
+        lib.srcnn_cuda_error_string.restype = ctypes.c_char_p
+        return lib
 
 
 def check(err: int, what: str) -> None:

@@ -34,6 +34,7 @@ import torch
 from .cli import DEVICES, cuda_missing, device_name
 from .ops.resize import scaled_size
 from .pipeline import u8_tensor, upscale_bgr_batch, upscale_planar, weights_on
+from .utils.profiling import span
 from .weights import SRCNNWeights
 
 _PROG = "srcnn-torch-stream"
@@ -52,6 +53,10 @@ class StreamUpscaler:
     ``depth`` earlier dispatches are in flight, so the pair it takes belongs
     to one whose event has completed and whose output has been copied out.
     No buffer is written by the host while a copy from or into it may run.
+
+    Under a ``torch.profiler`` session a dispatch records the spans
+    ``srcnn.stream.stage_in`` and ``srcnn.stream.dispatch``, and a
+    completion ``srcnn.stream.wait`` and ``srcnn.stream.copy_out``.
     """
 
     def __init__(self, scale: float, weights: SRCNNWeights | None = None,
@@ -95,32 +100,40 @@ class StreamUpscaler:
         frames, self._pending = self._pending, []
         n = len(frames)
         if self.device.type != "cuda":
-            self._inflight.append((None, upscale_bgr_batch(
-                self._stack(frames), self.scale, self.weights,
-                self.device).numpy()))
+            with span("srcnn.stream.stage_in"):
+                x = self._stack(frames)
+            with span("srcnn.stream.dispatch"):
+                self._inflight.append((None, upscale_bgr_batch(
+                    x, self.scale, self.weights, self.device).numpy()))
             return
         tensors = any(isinstance(f, torch.Tensor) for f in frames)
         h, w = frames[0].shape[:2]
         pin_in, pin_out = self._slot(h, w)
-        if not tensors:
-            np.stack(frames, out=pin_in.numpy()[:n])
         ow, oh = scaled_size(w, h, self.scale)
         with torch.cuda.device(self.device):
-            x = (self._stack(frames) if tensors
-                 else pin_in[:n].to(self.device, non_blocking=True))
-            out = upscale_planar(x.permute(0, 3, 1, 2).contiguous(),
-                                 self.weights, (oh, ow))
-            pin_out[:n].copy_(out.permute(0, 2, 3, 1).contiguous(),
-                              non_blocking=True)
-            done = torch.cuda.Event()
-            done.record()
+            with span("srcnn.stream.stage_in"):
+                if tensors:
+                    x = self._stack(frames)
+                else:
+                    np.stack(frames, out=pin_in.numpy()[:n])
+            with span("srcnn.stream.dispatch"):
+                if not tensors:
+                    x = pin_in[:n].to(self.device, non_blocking=True)
+                out = upscale_planar(x.permute(0, 3, 1, 2).contiguous(),
+                                     self.weights, (oh, ow))
+                pin_out[:n].copy_(out.permute(0, 2, 3, 1).contiguous(),
+                                  non_blocking=True)
+                done = torch.cuda.Event()
+                done.record()
         self._inflight.append((done, pin_out[:n]))
 
     def _complete_oldest(self) -> None:
         done, out = self._inflight.popleft()
         if done is not None:
-            done.synchronize()
-            out = out.numpy().copy()    # the pinned buffer will be reused
+            with span("srcnn.stream.wait"):
+                done.synchronize()
+            with span("srcnn.stream.copy_out"):
+                out = out.numpy().copy()    # the pinned buffer will be reused
         self._ready.extend(out)
 
     def push(self, frame_bgr) -> np.ndarray | None:

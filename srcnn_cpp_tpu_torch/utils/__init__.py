@@ -1,6 +1,6 @@
 """Framework-free helpers: timing, exit codes and image-quality metrics;
 :mod:`.profiling` (imported by name, as in the JAX package) holds the
-trace, the stage timer and the MP/s helper."""
+trace and the program's spans."""
 
 from .metrics import psnr, ssim
 from .timer import TickTimer, tick_ms

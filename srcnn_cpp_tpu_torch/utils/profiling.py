@@ -1,34 +1,39 @@
-"""Profiling hooks: a trace, a per-stage timer and an MP/s helper.
+"""Profiling hooks: a trace, and the program's spans inside it.
 
 The port of ``srcnn_cpp_tpu/utils/profiling.py`` in PyTorch's idiom:
 
 * :func:`trace` — context manager recording a ``torch.profiler`` trace
   (CPU activity, and the card's when there is one) around any span, written
   as Chrome/Perfetto trace JSON into ``logdir``;
-* :class:`StageTimer` — per-stage wall-clock breakdown, each span fenced by
-  a host fetch of its result (``.cpu()``), as the JAX version fetches with
-  ``np.asarray``;
-* :func:`throughput` — best-of sustained MP/s of a call, fenced the same
-  way.
+* :func:`span` — a named host span of the program (``srcnn.*``), recorded
+  by whatever ``torch.profiler`` session is running, on the same clock as
+  the card's kernels and copies; a shared no-op when none is.
 """
 
 from __future__ import annotations
 
 import contextlib
-import time
 from pathlib import Path
+
+import torch
+from torch.autograd import profiler as _autograd_profiler
 
 #: no-op device activities that lead a trace on the card (:func:`trace`)
 _LEAD_IN = 16
 
+#: what :func:`span` returns while no profiler records
+_NO_SPAN = contextlib.nullcontext()
 
-def _fetch(value) -> None:
-    """Copy a tensor, or each tensor of a tuple or list, to the host: the
-    fence that waits for the device work that made it.  Host arrays need
-    no fence."""
-    for t in value if isinstance(value, (tuple, list)) else (value,):
-        if hasattr(t, "cpu"):
-            t.cpu()
+
+def span(name: str):
+    """A context manager that records the span ``name`` while a
+    ``torch.profiler`` session records (:func:`trace`, or any other), as a
+    ``user_annotation`` event nested in its caller's span; otherwise the one
+    shared no-op, so that an untraced call pays for one flag check and no
+    span is kept anywhere."""
+    if _autograd_profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 @contextlib.contextmanager
@@ -40,7 +45,6 @@ def trace(logdir: str | None = None):
     unset).  Yields ``logdir``."""
     import tempfile
 
-    import torch
     from torch.profiler import ProfilerActivity, profile
 
     if logdir is None:
@@ -64,44 +68,3 @@ def trace(logdir: str | None = None):
             if torch.cuda.is_available():
                 torch.cuda.synchronize()
     prof.export_chrome_trace(str(Path(logdir) / "trace.json"))
-
-
-class StageTimer:
-    """Accumulates named spans; device results are fenced by host fetch."""
-
-    def __init__(self) -> None:
-        self.spans: dict[str, float] = {}
-
-    @contextlib.contextmanager
-    def span(self, name: str, fetch=None):
-        t0 = time.monotonic()
-        try:
-            yield
-        finally:
-            if fetch is not None:
-                _fetch(fetch() if callable(fetch) else fetch)
-            self.spans[name] = self.spans.get(name, 0.0) + (
-                time.monotonic() - t0) * 1e3
-
-    def report(self) -> str:
-        total = sum(self.spans.values())
-        lines = [f"{k:24s} {v:8.1f} ms ({v / max(total, 1e-9):5.1%})"
-                 for k, v in self.spans.items()]
-        lines.append(f"{'TOTAL':24s} {total:8.1f} ms")
-        return "\n".join(lines)
-
-
-def throughput(fn, out_px: int, iters: int = 6, repeats: int = 3) -> float:
-    """Best-of sustained MP/s of ``fn()`` (fn returns a tensor or a tuple
-    of tensors): one warm-up call, then ``repeats`` runs of ``iters`` calls,
-    each fenced by a host fetch of its last output."""
-    out = fn()
-    _fetch(out)
-    best = float("inf")
-    for _ in range(repeats):
-        t0 = time.monotonic()
-        for _ in range(iters):
-            out = fn()
-        _fetch(out)
-        best = min(best, (time.monotonic() - t0) / iters)
-    return out_px / 1e6 / best
