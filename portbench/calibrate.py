@@ -5,9 +5,9 @@
 For each seed, in one process: one run of the cell as ``python -m
 portbench`` makes it (the timed path at the timed sizes, a short window),
 whose numbers are the program's readings, and the control on the same
-sampled frames: the reference with the convs' operands rounded to TF32,
-put in the program's place, against the reference.  One JSON line a seed;
-the benchmark's own runs never run the control.
+sampled frames: the configuration's reference with the convs' operands
+rounded to TF32, put in the program's place, against the reference.  One
+JSON line a seed; the benchmark's own runs never run the control.
 """
 
 from __future__ import annotations

@@ -4,7 +4,8 @@ The frames the timed path produced, one frame of each of
 :data:`CHECK_FRAMES` results drawn from the window by the seed
 (:class:`portbench.loops.Reservoir`), are compared whole (BGR, every
 channel) with the plain reference run on the same input frames and the
-same checkpoint file.  Two numbers, each with the limit the
+same checkpoint file: the reference that the configuration names
+(``spec.Cell.reference``).  Two numbers, each with the limit the
 configuration's file gives:
 
 * ``max_lsb``: the largest difference of an output byte from the
@@ -18,8 +19,6 @@ import dataclasses
 
 import numpy as np
 import torch
-
-from .reference import srcnn, srcnn_bgr
 
 #: results of the window that each give one frame to the comparison
 CHECK_FRAMES = 16
@@ -54,19 +53,20 @@ def as_tensor(frame, device) -> torch.Tensor:
     return frame.to(device)
 
 
-def compare(pairs: list, inputs, weights_file, scale: float, device,
-            control: Comparison | None = None) -> Comparison:
-    """Each output frame against the reference of its input frame
-    (``inputs[i]``); with ``control``, also the control (the reference
-    with the convs' operands in TF32) against the reference, into it."""
-    weights = srcnn.load(weights_file, device)
+def compare(pairs: list, inputs, reference, weights_file, scale: float,
+            device, control: Comparison | None = None) -> Comparison:
+    """Each output frame against the ``reference`` module's frame of its
+    input frame (``inputs[i]``); with ``control``, also the control (the
+    reference with the convs' operands in TF32) against the reference,
+    into it."""
+    weights = reference.load(weights_file, device)
     result = Comparison()
     for i, out in pairs:
         x = as_tensor(inputs[i], device)
-        ref = srcnn_bgr.upscale_frame(x, weights, scale)
+        ref = reference.upscale_frame(x, weights, scale)
         result.add(as_tensor(out, device), ref)
         if control is not None:
-            control.add(srcnn_bgr.upscale_frame(x, weights, scale,
+            control.add(reference.upscale_frame(x, weights, scale,
                                                 tf32=True), ref)
     return result
 

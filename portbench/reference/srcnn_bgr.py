@@ -2,6 +2,10 @@
 
 BGR uint8 -> YCrCb -> each channel INTER_CUBIC to the output size -> the
 SRCNN stack on Y -> (Y', Cr, Cb) -> BGR uint8, one frame at a time.
+
+The reference of the SRCNN configurations (their ``"reference"``): it
+provides ``load``, ``macs_per_pixel`` and ``upscale_frame``, what
+``portbench.spec.REFERENCE_API`` asks of a network's reference.
 """
 
 from __future__ import annotations
@@ -10,7 +14,9 @@ import torch
 
 from .color import bgr2ycrcb, ycrcb2bgr
 from .resize import output_size, resize_plane
-from .srcnn import srcnn_y
+from .srcnn import load, macs_per_pixel, srcnn_y
+
+__all__ = ["load", "macs_per_pixel", "upscale_frame"]
 
 
 def upscale_frame(bgr: torch.Tensor, weights: dict, scale: float,

@@ -3,11 +3,12 @@
     python -m portbench --workload <name> --seed <n> --seconds <s> --trace <0|1>
 
 Set-up (counted in ``setup_s``, from the process's start): import the
-program, make the cell's frames from ``--seed``, load the checkpoint file
-through the program's loader, build the runner of ``configs.py`` that the
-configuration names (the kernel library is built into the checkout on a
-checkout's first run, and loaded after), and run the cell's own loop for
-the traffic's warm-up units.  Then the window: the closed loop of
+program and the configuration's reference, make the cell's frames from
+``--seed``, load the checkpoint file through the program's loader that
+the configuration names, build the runner of ``configs.py`` that it
+names (the kernel library is built into the checkout on a checkout's
+first run, and loaded after), and run the cell's own loop for the
+traffic's warm-up units.  Then the window: the closed loop of
 :mod:`.loops` for ``--seconds``.  With ``--trace 0`` the readers of
 ``end_to_end/`` report the cell's end-to-end metrics; with ``--trace 1``
 the window runs under ``torch.profiler`` and the readers of ``metrics/``
@@ -34,8 +35,6 @@ import time
 from . import frames as frame_gen
 from . import judge, loops, roofline, spec, trace
 from .reference.resize import output_size
-from .reference.srcnn import load as load_reference_weights
-from .reference.srcnn import macs_per_pixel
 
 #: top-level module names that may not be loaded when the window closes
 FORBIDDEN = ("jax", "jaxlib", "flax", "srcnn_cpp_tpu")
@@ -77,7 +76,6 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, traced: bool,
     import torch
 
     from srcnn_cpp_tpu_torch import configs
-    from srcnn_cpp_tpu_torch.weights import load_weights
 
     t0 = time.perf_counter() if t0 is None else t0
     cfg, tr = cell.config, cell.traffic
@@ -102,7 +100,7 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, traced: bool,
              for i in range(0, len(inputs), per_unit)]
     phases["frames"] = time.perf_counter() - t0 - sum(phases.values())
     runner = getattr(configs, cfg["runner"])(
-        weights=load_weights(weights_file, dev), device=dev,
+        weights=cell.program_weights(weights_file, dev), device=dev,
         **cfg.get("runner_kwargs", {}))
     loop = loops.LOOPS[cfg["protocol"]]
     kw = {"inflight": tr["inflight"]} if call else {}
@@ -137,9 +135,10 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, traced: bool,
     metrics, extra = {}, {}
     if traced:
         shapes = {k: tuple(v.shape) for k, v in
-                  load_reference_weights(weights_file, "cpu").items()}
+                  cell.reference.load(weights_file, "cpu").items()}
         ctx = trace.context(rec.get("events", []), win.done, in_hw, out_hw,
-                            macs_per_pixel(shapes), roofline.peaks_for(kind))
+                            cell.reference.macs_per_pixel(shapes),
+                            roofline.peaks_for(kind))
         for m in cell.per_layer:
             v = spec.metric_reader(m["name"])(ctx) if ctx else None
             if v is not None:
@@ -159,8 +158,8 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, traced: bool,
     pairs = [(unit * per_unit + j, frame) for unit, j, frame in keep.items]
     keep.items.clear()
     ctrl = judge.Comparison() if control else None
-    found = judge.compare(pairs, inputs, weights_file, cfg["scale"], dev,
-                          ctrl)
+    found = judge.compare(pairs, inputs, cell.reference, weights_file,
+                          cfg["scale"], dev, ctrl)
     print(f"judge: {found.frames} frames of {keep.n} results in "
           f"{time.perf_counter() - t_judge:.3f} s", file=sys.stderr,
           flush=True)
