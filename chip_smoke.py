@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Builds the five CUDA kernels of the port from ``srcnn_cpp_tpu_torch/csrc``
+Builds the CUDA kernels of the port from ``srcnn_cpp_tpu_torch/csrc``
 (one nvcc per source, sm_90a; phase 1 prints ptxas's registers and spills,
 the conv's setmaxnreg split and K2's static SASS instruction counts, and
 fails on any spill), holds each against
@@ -74,7 +74,14 @@ read just after:
   x2 at d = 1 (its Y plane), 2 (RGB565), 3 (RGB) and 4 (RGB and a seeded
   alpha): bit-equal to the same composition of the port's card path, the
   golden gate against the port's CPU run (<=1 LSB at d = 1), the alpha
-  plane bit-equal, K1 once at d = 1 and K2, K1, K3 once each otherwise.
+  plane bit-equal, K1 once at d = 1 and K2, K1, K3 once each otherwise;
+* phase 25, the VDSR chain ``vdsr_y_fused`` (conv1, the 18 64->64 layers,
+  conv20 with the residual) at the main path's batch and size, 8 frames of
+  1080x1920 -> 2160x3840 with the seeded weights of
+  ``portbench/configs/vdsr20_seeded.npz``: ``upscale_planar`` launches it
+  once and K1 never, bit-equal to K2 -> the chain -> K3; each of the 8
+  planes within 1 LSB of the fp32 ``F.conv2d`` path on under 0.5 % of
+  pixels; timed beside the plain path and its bound.
 
 Each phase from 7 on prints its wall time.
 
@@ -103,6 +110,7 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
+VDSR_NPZ = ROOT / "portbench/configs/vdsr20_seeded.npz"
 SEED = 0
 # x2 main-path geometry: 4 frames of 540x960 -> 1080x1920
 BATCH, IH, IW, SCALE = 4, 540, 960, 2.0
@@ -488,6 +496,7 @@ def main() -> int:
     timed(phase_single_8k_mesh_tensor, extra,
           {**mesh_host_ms, **uneven_host_ms})
     timed(phase_process_srcnn, extra)
+    timed(phase_vdsr, extra, launches, max_err, ms, plain_ms, bounds)
 
     replaces = {
         "pre_upscale_fused": ("srcnn_cpp_tpu_torch/csrc/pre_pass.cu",
@@ -500,6 +509,8 @@ def main() -> int:
                               "srcnn_cpp_tpu/ops/pallas_srcnn.py:505"),
         "srcnn_y_f32_fused": ("srcnn_cpp_tpu_torch/csrc/srcnn_conv.cu",
                               "srcnn_cpp_tpu/ops/pallas_srcnn.py:157"),
+        # the JAX package runs SRCNN only
+        "vdsr_y_fused": ("srcnn_cpp_tpu_torch/csrc/vdsr_conv.cu", None),
     }
     # library_ms: no single PyTorch call computes any of these functions
     kernels = [{"name": n, "route": "cuda", "source": src, "replaces": rep,
@@ -564,17 +575,18 @@ class Extra:
 
     def __init__(self, gpu, weights, x, up):
         from srcnn_cpp_tpu_torch.ops import (cuda_merge, cuda_resize,
-                                             cuda_srcnn)
+                                             cuda_srcnn, cuda_vdsr)
 
         self.gpu, self.weights, self.x, self.up = gpu, weights, x, up
         self.wrappers = (cuda_resize.pre_upscale_fused,
                          cuda_srcnn.srcnn_y_fused,
                          cuda_merge.merge_ycrcb_to_bgr_fused,
                          cuda_srcnn.srcnn_merge_fused,
-                         cuda_srcnn.srcnn_y_f32_fused)
+                         cuda_srcnn.srcnn_y_f32_fused,
+                         cuda_vdsr.vdsr_y_fused)
         self.plains = (cuda_resize.pre_upscale_plain, cuda_srcnn.srcnn_y_plain,
                        cuda_merge.merge_plain, cuda_srcnn.srcnn_merge_plain,
-                       cuda_srcnn.srcnn_y_f32_plain)
+                       cuda_srcnn.srcnn_y_f32_plain, cuda_vdsr.vdsr_y_plain)
         self.rng = np.random.default_rng(SEED + 1)
         self.y4k = None
 
@@ -1679,6 +1691,60 @@ def phase_process_srcnn(e: Extra) -> None:
                          torch.from_numpy(cpu.reshape(oh, ow, 4)[..., 3]
                                           .copy()),
                          "d=4 alpha vs the CPU run")
+
+
+def phase_vdsr(e: Extra, launches: dict, max_err: dict, ms: dict,
+               plain_ms: dict, bounds: dict) -> None:
+    """The VDSR chain at the shapes of the benchmark's VDSR cell: a batch
+    of 8 frames of 1080x1920 through ``upscale_planar`` at x2."""
+    from srcnn_cpp_tpu_torch.ops.cuda_merge import merge_ycrcb_to_bgr_fused
+    from srcnn_cpp_tpu_torch.ops.cuda_resize import pre_upscale_fused
+    from srcnn_cpp_tpu_torch.ops.cuda_vdsr import vdsr_y_fused, vdsr_y_plain
+    from srcnn_cpp_tpu_torch.pipeline import upscale_planar
+    from srcnn_cpp_tpu_torch.weights import load_vdsr_weights
+
+    b, h, w = 8, 1080, 1920
+    oh, ow = 2 * h, 2 * w
+    say(f"phase 25: VDSR vdsr_y_fused vs vdsr_y_plain (TF32 off), "
+        f"upscale_planar on [{b},3,{h},{w}] -> [{b},3,{oh},{ow}]")
+    weights = load_vdsr_weights(VDSR_NPZ, device="cuda")
+    x = u8((b, 3, h, w), 60)
+    out, got = e.drive(
+        "upscale_planar with VDSR weights",
+        lambda: upscale_planar(x, weights, (oh, ow)),
+        ("pre_upscale_fused", "vdsr_y_fused", "merge_ycrcb_to_bgr_fused"))
+    if got["vdsr_y_fused"] != 1 or got["srcnn_y_fused"]:
+        raise AssertionError("upscale_planar did not run the VDSR chain "
+                             "once and K1 never")
+    launches["vdsr_y_fused"] = got["vdsr_y_fused"]
+    up = pre_upscale_fused(x, (oh, ow))
+    y = vdsr_y_fused(up[:, 0], weights)
+    assert_equal(out, merge_ycrcb_to_bgr_fused(y, up),
+                 "upscale_planar vs K2 -> vdsr_y_fused -> K3")
+    err = 0
+    for i in range(b):
+        err = max(err, lsb_close(y[i], vdsr_y_plain(up[i, 0], weights),
+                                 f"plane {i} of {b} [{oh},{ow}]"))
+    max_err["vdsr_y_fused"] = err
+
+    def plain():
+        for i in range(b):
+            vdsr_y_plain(up[i, 0], weights)
+
+    name = "vdsr_y_fused"
+    ms[name], plain_ms[name] = ab_ms(lambda: vdsr_y_fused(up[:, 0], weights),
+                                     plain, 2)
+    npix = b * oh * ow
+    macs = sum(wt.numel() for wt, _ in weights.layers)
+    # bytes: Y in, Y' out; operations: the network's MACs at dense TF32
+    bounds[name] = bound(2.0 * npix, 2.0 * macs * npix, TF32_FLOPS)
+    say(f"  {name}: {ms[name]:.2f} ms, plain {plain_ms[name]:.2f} ms, bound "
+        f"{bounds[name][0]:.2f} ms ({bounds[name][1]}); a frame "
+        f"{ms[name] / b:.2f} ms against {bounds[name][0] / b:.2f}; "
+        f"{2 * macs * npix / (ms[name] * 1e-3) / 1e12:.1f} TFLOP/s of "
+        f"{TF32_FLOPS / 1e12:.0f} (dense TF32), {macs} MACs a pixel "
+        f"({e.gpu})")
+
 
 if __name__ == "__main__":
     sys.exit(main())

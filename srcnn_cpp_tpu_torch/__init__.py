@@ -12,7 +12,8 @@ Public surface:
 * :func:`process_srcnn` — the raw-buffer API (``ProcessSRCNN``,
   reference src/test.cpp:345);
 * :func:`load_weights` — the pretrained SRCNN 9-5-5 checkpoint as tensors
-  (:class:`SRCNNWeights`);
+  (:class:`SRCNNWeights`); :func:`load_vdsr_weights` — a 20-layer VDSR
+  checkpoint (:class:`VDSRWeights`), which the same entry points run;
 * :class:`SRCNN` — the model family as a ``torch.nn.Module`` (:mod:`.models`);
 * :func:`evaluate_image` — the Resize.m evaluation protocol
   (:mod:`.evaluate`, ``python -m srcnn_cpp_tpu_torch.evaluate``);
@@ -33,7 +34,8 @@ def __getattr__(name):
         from . import pipeline
 
         return getattr(pipeline, name)
-    if name in ("load_weights", "SRCNNWeights"):
+    if name in ("load_weights", "SRCNNWeights", "load_vdsr_weights",
+                "VDSRWeights"):
         from . import weights
 
         return getattr(weights, name)

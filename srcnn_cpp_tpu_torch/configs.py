@@ -20,14 +20,15 @@ import torch
 
 from .pipeline import u8_tensor, upscale_bgr, upscale_bgr_batch, weights_on
 from .stream import StreamUpscaler
-from .weights import SRCNNWeights
+from .weights import SRCNNWeights, refuse_vdsr
 
 def batch_1080p_to_4k(weights: SRCNNWeights | None = None, batch: int = 32,
                       device="cuda"):
     """Runner: BGR uint8 ``[B, H, W, 3]`` -> x2, in chunks of ``batch``
     frames per dispatch (frames of one chunk share one launch per kernel).
     A tensor batch comes back as one tensor on ``device``, its chunks
-    joined there; a host array as one host array."""
+    joined there; a host array as one host array.  ``VDSRWeights`` run
+    VDSR in place of SRCNN (:func:`.pipeline.network_y`)."""
     device = torch.device(device)
     weights = weights_on(weights, device)
 
@@ -78,8 +79,11 @@ def single_8k(weights: SRCNNWeights | None = None, mesh=None,
 
 def _single_8k_mesh(weights: SRCNNWeights | None, mesh, scale: float):
     from .ops.resize import scaled_size
-    from .parallel.tiling import gather_blocks, split_blocks, upscale_blocks
+    from .parallel.tiling import (HALO, gather_blocks, split_blocks,
+                                  upscale_blocks)
 
+    refuse_vdsr(weights, "single_8k(mesh=...)", f"SRCNN's {HALO} rows and "
+                f"columns")
     weights = weights_on(weights, "cpu") if weights is None else weights
 
     def run(bgr):

@@ -89,8 +89,11 @@
 #include <stdint.h>
 
 #include "color.cuh"
+#include "wgmma.cuh"
 
 namespace {
+
+using namespace srcnn_hopper;
 
 constexpr int TW = 60;                      // output columns of a strip
 constexpr int POS = TW + 4;                 // f2 positions of a strip row
@@ -180,72 +183,12 @@ struct StoreBGR {   // K4: BGR of (IntTrim(v), Cr, Cb) into out [B, 3, H, W] u8
   }
 };
 
-// --- mbarriers ---------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void bar_init(uint64_t* b, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(b)),
-               "r"(count) : "memory");
-}
-
-// Arrive (release: this thread's earlier shared-memory reads and writes are
-// done before the phase can complete).
-__device__ __forceinline__ void bar_arrive(uint64_t* b) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(b))
-               : "memory");
-}
-
-// Wait until the phase of parity `parity` has completed (acquire).
-__device__ __forceinline__ void bar_wait(uint64_t* b, uint32_t parity) {
-  const uint32_t a = smem_u32(b);
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(a), "r"(parity) : "memory");
-  } while (!done);
-}
-
-// Ring slot n of a ring of size R: its barrier completes once per pass, so
-// the k-th use waits for parity k & 1; the other side's first pass is free.
-template <int R>
-__device__ __forceinline__ uint32_t pass_parity(uint32_t n) {
-  return (n / R) & 1u;
-}
-
 // --- wgmma -------------------------------------------------------------------
 
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Keeps the compiler from moving accumulator reads and writes across the
-// wgmma fences and waits (the registers change asynchronously).
-template <int J>
-__device__ __forceinline__ void fence_acc(float (&d)[J][4]) {
-#pragma unroll
-  for (int j = 0; j < J; ++j)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) asm volatile("" : "+f"(d[j][i])::"memory");
-}
-
-// Matrix descriptor of a K-major, unswizzled operand at shared address p:
-// start >> 4 in bits 0-13, LBO >> 4 in 16-29, SBO >> 4 in 32-45, base
-// offset 0, layout type 0 (no swizzle) in bits 62-63.
+// Matrix descriptor of a weight plane at shared address p (K-major, no
+// swizzle; LBO along K, SBO along N).
 __device__ __forceinline__ uint64_t b_desc(const float* p) {
-  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) |
-         ((uint64_t)(LBO >> 4) << 16) | ((uint64_t)(SBO >> 4) << 32);
+  return smem_desc(p, LBO, SBO);
 }
 
 // D[64 x 64] += A[64 x 8] . B[8 x 64]; A in registers (tf32 bit patterns).
@@ -283,13 +226,6 @@ __device__ __forceinline__ void mma_n32(float (&d)[4][4],
         "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
         "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
-}
-
-// 3xTF32 split: hi keeps the tf32 bits of x; lo = x - hi is exact in fp32.
-// A bit mask, not a cvt round trip, so the compiler cannot fold lo to 0.
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = __float_as_uint(x) & 0xFFFFE000u;
-  lo = __float_as_uint(__fsub_rn(x, __uint_as_float(hi)));
 }
 
 // ReLU and split of one n8 column block of an accumulator, reordered into

@@ -41,11 +41,13 @@ from .. import runtime
 from ..utils.profiling import span
 from .color import ycrcb2bgr_u8_planar
 from ..weights.loader import CANONICAL, family_shapes
+from ..weights.vdsr import refuse_vdsr
 from .srcnn import srcnn_y, srcnn_y_f32
 
 __all__ = ["srcnn_y_fused", "srcnn_y_plain", "srcnn_merge_fused",
            "srcnn_merge_plain", "srcnn_y_f32_fused", "srcnn_y_f32_plain",
-           "pack_weights", "conv_tile_plan", "c_to_a_perm"]
+           "pack_weights", "conv_tile_plan", "c_to_a_perm", "tf32_split",
+           "smem_descriptor"]
 
 #: the kernel's geometry, mirrored by the constants in srcnn_conv.cu
 STRIP = 60                 # output columns of a work unit
@@ -186,8 +188,16 @@ def b_descriptor(plane: str, step: int, base: int = 0) -> int:
     off, k, n = packed_layout()[plane]
     if not 0 <= step < k // 8:
         raise ValueError(f"{plane} has {k // 8} k8 steps")
-    addr = base + 4 * off + step * n * 32
-    return ((addr & 0x3FFFF) >> 4) | ((LBO >> 4) << 16) | ((SBO >> 4) << 32)
+    return smem_descriptor(base + 4 * off + step * n * 32, LBO, SBO)
+
+
+def smem_descriptor(addr: int, lbo: int, sbo: int) -> int:
+    """The 64-bit wgmma matrix descriptor of a K-major, unswizzled operand
+    at shared byte address ``addr`` (``csrc/wgmma.cuh::smem_desc``):
+    ``addr >> 4`` in bits 0-13, ``lbo >> 4`` (between core matrices along
+    K) in 16-29, ``sbo >> 4`` (along M or N) in 32-45, base offset 0,
+    layout type 0 (no swizzle) in bits 62-63."""
+    return ((addr & 0x3FFFF) >> 4) | ((lbo >> 4) << 16) | ((sbo >> 4) << 32)
 
 
 def conv_smem_bytes() -> int:
@@ -305,6 +315,8 @@ _SHAPES = family_shapes(*CANONICAL)
 
 
 def _check_device(x: torch.Tensor, weights) -> None:
+    refuse_vdsr(weights, "the SRCNN conv kernels (K1, K4, K5)",
+                "SRCNN's 6 pixels (9x9, 1x1, 5x5)")
     if any(tuple(getattr(weights, k).shape) != v for k, v in _SHAPES.items()):
         raise ValueError("the fused kernels take SRCNN 9-5-5 64/32 weights")
     if weights.conv1_w.device != x.device:

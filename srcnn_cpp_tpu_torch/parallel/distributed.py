@@ -46,9 +46,9 @@ import torch
 import torch.distributed as dist
 
 from ..ops.resize import scaled_size
-from ..weights import SRCNNWeights, load_weights
+from ..weights import SRCNNWeights, load_weights, refuse_vdsr
 from .mesh import Mesh, _device
-from .tiling import (bounds, gather_blocks, pre_upscale_halos,
+from .tiling import (HALO, bounds, gather_blocks, pre_upscale_halos,
                      upscale_blocks)
 
 _PROG = "srcnn-torch-distributed"
@@ -150,6 +150,8 @@ class DistributedStream:
         if gather not in ("local", "full"):
             raise ValueError(f"gather must be 'local' or 'full', not "
                              f"{gather!r}")
+        refuse_vdsr(weights, "parallel.distributed", f"SRCNN's {HALO} "
+                    f"rows, exchanged between the row blocks")
         if mesh.shape["col"] != 1:
             raise ValueError("the stream tiles rows only: col must be 1")
         self.scale, self.mesh = float(scale), mesh

@@ -63,7 +63,7 @@ from ..ops.cuda_merge import merge_ycrcb_to_bgr_fused
 from ..ops.cuda_resize import PreWindow, pre_upscale_fused, window_source
 from ..ops.cuda_srcnn import srcnn_y_fused
 from ..ops.srcnn import fp32_strict
-from ..weights import weights_on
+from ..weights import refuse_vdsr, weights_on
 from .mesh import Mesh
 
 __all__ = ["HALO", "split_blocks", "gather_blocks", "srcnn_blocks",
@@ -274,7 +274,10 @@ def _check_min(n: int, parts: int, what: str) -> None:
 def srcnn_blocks(blocks: np.ndarray, weights, mesh: Mesh) -> np.ndarray:
     """K1 on each block of a grid of Y blocks ``[b, h, w]`` u8 (rows and
     columns of one frame, halos from the neighbours on interior sides
-    only); returns the grid of ``[b, h, w]`` u8 outputs."""
+    only); returns the grid of ``[b, h, w]`` u8 outputs.  VDSR weights
+    raise TypeError: the blocks' halo is SRCNN's."""
+    refuse_vdsr(weights, "parallel.tiling", f"SRCNN's {HALO} rows and "
+                f"columns")
     ext_c, lc = _exchange(blocks, mesh, 2, HALO, HALO)
     ext, lr = _exchange(ext_c, mesh, 1, HALO, HALO)
     out = np.empty(blocks.shape, dtype=object)
@@ -478,6 +481,8 @@ def _srcnn_tile_f32(blocks: np.ndarray, weights, mesh: Mesh) -> np.ndarray:
     the true edges, conv3 valid; a rows-only mesh is the ``col == 1`` case.
     ``weights``: an ``SRCNNWeights`` or :class:`..models.SRCNN` with 9x9,
     1x1 and 5x5 filters."""
+    refuse_vdsr(weights, "parallel.tiling", f"SRCNN's {HALO} rows and "
+                f"columns")
     ks = tuple(getattr(weights, k).shape[-1] for k in ("conv1_w", "conv2_w",
                                                       "conv3_w"))
     if ks != (9, 1, 5):

@@ -6,8 +6,11 @@ device:
     BGR u8 -> YCrCb (fixed-point) -> per-channel bicubic x scale
     (OpenCV-4.6-bit-exact) -> SRCNN on Y -> merge(Y', Cr, Cb) -> BGR u8
 
-as three kernels: K2 the pre-pass (:mod:`.ops.cuda_resize`), K1 the conv
-stack (:mod:`.ops.cuda_srcnn`) and K3 the post-pass (:mod:`.ops.cuda_merge`).
+as three kernels: K2 the pre-pass (:mod:`.ops.cuda_resize`), the network
+on Y and K3 the post-pass (:mod:`.ops.cuda_merge`).  The network follows
+from the weights' type (:func:`network_y`): SRCNN's K1 conv stack
+(:mod:`.ops.cuda_srcnn`) for ``SRCNNWeights``, the VDSR chain
+(:mod:`.ops.cuda_vdsr`) for ``VDSRWeights``.
 On a CUDA device each wrapper launches its kernel; on the CPU each runs its
 plain PyTorch version.  There is one path per device and no fallback.
 
@@ -30,9 +33,10 @@ import torch
 from .ops.cuda_merge import merge_ycrcb_to_bgr_fused
 from .ops.cuda_resize import pre_upscale_fused
 from .ops.cuda_srcnn import srcnn_y_fused
+from .ops.cuda_vdsr import vdsr_y_fused
 from .ops.resize import resize_bicubic_u8, scaled_size
 from .utils.profiling import span
-from .weights import SRCNNWeights, weights_on
+from .weights import SRCNNWeights, VDSRWeights, weights_on
 
 
 def u8_tensor(frames: torch.Tensor) -> torch.Tensor:
@@ -43,13 +47,22 @@ def u8_tensor(frames: torch.Tensor) -> torch.Tensor:
     return frames
 
 
-def upscale_planar(bgr_p: torch.Tensor, weights: SRCNNWeights,
+def network_y(y_u8: torch.Tensor, weights) -> torch.Tensor:
+    """The weights' network on uint8 Y plane(s), uint8 out: VDSR's chain
+    for ``VDSRWeights``, SRCNN's K1 for any other weights."""
+    if isinstance(weights, VDSRWeights):
+        return vdsr_y_fused(y_u8, weights)
+    return srcnn_y_fused(y_u8, weights)
+
+
+def upscale_planar(bgr_p: torch.Tensor, weights,
                    out_hw: tuple[int, int]) -> torch.Tensor:
     """Planar BGR u8 ``[B, 3, H, W]`` -> planar BGR u8 ``[B, 3, oh, ow]``,
-    on the device of ``bgr_p`` (``weights`` must live there too)."""
+    on the device of ``bgr_p`` (``weights``, ``SRCNNWeights`` or
+    ``VDSRWeights``, must live there too)."""
     with span("srcnn.pipeline"):
         up = pre_upscale_fused(bgr_p, out_hw)        # YCrCb [B, 3, oh, ow]
-        y_sr = srcnn_y_fused(up[:, 0], weights)      # [B, oh, ow]
+        y_sr = network_y(up[:, 0], weights)          # [B, oh, ow]
         return merge_ycrcb_to_bgr_fused(y_sr, up)
 
 
@@ -84,7 +97,8 @@ fetch_host.hits = 0     # CUDA fetches served from torch's pinned cache
 fetch_host.misses = 0   # CUDA fetches for which the cache grew
 
 
-def upscale_bgr_batch(bgr_u8, scale: float, weights: SRCNNWeights | None = None,
+def upscale_bgr_batch(bgr_u8, scale: float,
+                      weights: SRCNNWeights | VDSRWeights | None = None,
                       device="cuda"):
     """Super-resolve a batch ``[B, H, W, 3]`` of BGR uint8 frames on
     ``device`` into ``[B, oh, ow, 3]``.
@@ -168,7 +182,7 @@ def process_srcnn(buf, w: int, h: int, d: int, scale: float,
     if d == 1:
         up = resize_bicubic_u8(torch.from_numpy(np.array(img)).to(device),
                                (oh, ow))
-        out = srcnn_y_fused(up, weights_on(weights, device)).cpu().numpy()
+        out = network_y(up, weights_on(weights, device)).cpu().numpy()
     else:
         bgr = img[..., 2::-1]
         out = upscale_bgr(bgr, scale, weights, device)[..., ::-1]

@@ -1,9 +1,11 @@
 """Build and load the port's CUDA kernels.
 
 The kernels (``csrc/pre_pass.cu``; ``csrc/srcnn_conv.cu``, whose template
-gives the conv, conv+merge and f32-output conv; ``csrc/merge.cu``; the
-shared ``csrc/color.cuh``) have a plain C interface.  Each ``.cu`` source is
-compiled for ``sm_90a`` (Hopper) by its own ``nvcc``, all started together,
+gives the conv, conv+merge and f32-output conv; ``csrc/merge.cu``;
+``csrc/vdsr_conv.cu``, the VDSR chain; the shared headers
+``csrc/color.cuh`` and ``csrc/wgmma.cuh``) have a plain C interface.  Each
+``.cu`` source is compiled for ``sm_90a`` (Hopper) by its own ``nvcc``, all
+started together,
 and the objects are linked into one shared library, loaded with
 :mod:`ctypes`.  The library is built on first use into ``_build/`` beside
 this file, named by a hash of the sources, headers and flags, so an edited
@@ -42,6 +44,7 @@ _SIGNATURES = {
     "pre_pass_u8": (*(_P,) * 8, *(_I,) * 10, _P),
     "pre_pass_resident_blocks": (_I, _P),
     "merge_ycrcb_bgr_u8": (_P, _P, _P, *(_I,) * 6, _LL, _P),
+    "vdsr_y_u8": (_P, _LL, *(_P,) * 6, *(_I,) * 5, _P),
 }
 
 

@@ -12,10 +12,10 @@ stream takes a host or device array; results are host arrays either way.
 On a CUDA device, a micro-batch of host frames is staged in a pinned host
 buffer and copied in; one that holds a tensor is stacked on the card
 instead (a frame already there is not copied).  Then the pipeline
-(:func:`.pipeline.upscale_planar`: K2 -> K1 -> K3, with the HWC <-> planar
-transposes on the card) and the device-to-host copy into a pinned output
-buffer are enqueued on the current CUDA stream, an event is recorded and
-``push`` returns; a result is read only once the pipeline depth is
+(:func:`.pipeline.upscale_planar`: K2 -> the weights' network -> K3, with
+the HWC <-> planar transposes on the card) and the device-to-host copy into
+a pinned output buffer are enqueued on the current CUDA stream, an event is
+recorded and ``push`` returns; a result is read only once the pipeline depth is
 reached, after its event has completed.  On the CPU each micro-batch runs
 the plain pipeline at once.  ``--device=cuda`` (the default) without a GPU
 is an error.

@@ -118,8 +118,9 @@ def _canonical(device) -> torch.device:
     return device
 
 
-def weights_on(weights: SRCNNWeights | None, device) -> SRCNNWeights:
-    """``weights`` (the pretrained checkpoint when None) on ``device``.
+def weights_on(weights, device):
+    """``weights``, an :class:`SRCNNWeights` or a ``VDSRWeights`` (the
+    pretrained SRCNN checkpoint when None), on ``device``.
 
     The checkpoint is loaded once per process and device.  Weights that
     live on ``device`` (``cuda`` and ``cuda:<current>`` are one device)

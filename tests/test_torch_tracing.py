@@ -141,6 +141,19 @@ def test_a_cold_call_nests_its_builds_in_the_pipeline(tmp_path):
     assert _inside(by_name["srcnn.pipeline"], by_name["srcnn.entry"])
 
 
+def test_vdsr_weights_run_the_chain_inside_the_pipeline(tmp_path):
+    from srcnn_cpp_tpu_torch.pipeline import upscale_bgr_batch
+    from srcnn_cpp_tpu_torch.weights import load_vdsr_weights
+
+    w = load_vdsr_weights(REPO / "portbench/configs/vdsr20_seeded.npz")
+    x = _frames(1, 6, 8, 4)
+    spans = _spans(_traced(lambda: upscale_bgr_batch(x, 2.0, w, "cpu"),
+                           tmp_path))
+    by_name = {e["name"]: e for e in spans}
+    assert _inside(by_name["srcnn.vdsr"], by_name["srcnn.pipeline"])
+    assert _inside(by_name["srcnn.pipeline"], by_name["srcnn.entry"])
+
+
 def _k2_plan():
     from srcnn_cpp_tpu_torch.ops import cuda_resize
 
@@ -176,8 +189,23 @@ def _weights():
     return None, lambda: pack_weights(w)
 
 
+def _vdsr_plan():
+    from srcnn_cpp_tpu_torch.ops import cuda_vdsr
+
+    return cuda_vdsr._plan, lambda: cuda_vdsr._plan(24, 40, 132)
+
+
+def _vdsr_weights():
+    from srcnn_cpp_tpu_torch.ops.cuda_vdsr import pack_vdsr
+    from srcnn_cpp_tpu_torch.weights import load_vdsr_weights
+
+    w = load_vdsr_weights(REPO / "portbench/configs/vdsr20_seeded.npz")
+    return None, lambda: pack_vdsr(w)
+
+
 BUILDERS = {"k2_plan": _k2_plan, "k1_plan": _k1_plan, "k3_args": _k3_args,
-            "cubic_tables": _cubic_tables, "weights": _weights}
+            "cubic_tables": _cubic_tables, "weights": _weights,
+            "vdsr_plan": _vdsr_plan, "vdsr_weights": _vdsr_weights}
 
 
 @pytest.mark.parametrize("what", sorted(BUILDERS))
