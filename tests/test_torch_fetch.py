@@ -1,13 +1,19 @@
 """PyTorch port, the fetch of a host-array result (``pipeline.fetch_host``).
 
-A host array given to ``upscale_bgr_batch`` comes back as one C-contiguous,
-writable uint8 array that the caller owns, bit-equal to the tensor branch's
-result on the same frames.  On the CPU it is the result tensor's own
-memory; on a CUDA device it is a block of torch's pinned caching host
-allocator, reused across calls of one size class and kept by a result that
-is held.  ``fetch_host.hits`` and ``.misses`` count CUDA fetches only.
-``cuda``-marked tests drive the pinned fetch on the card.
+A host array given to ``upscale_bgr_batch`` goes in as it is (HWC, with one
+host copy first only when it is not C-contiguous uint8), becomes planar on
+the device, and comes back as one C-contiguous, writable uint8 array that
+the caller owns, bit-equal to the tensor branch's result on the same frames
+and to the JAX package's, whatever the input's strides or integer dtype.
+On the CPU it is the result tensor's own memory; on a CUDA device it is a
+block of torch's pinned caching host allocator, reused across calls of one
+size class and kept by a result that is held.  ``fetch_host.hits`` and
+``.misses`` count CUDA fetches only.  ``cuda``-marked tests drive the
+pinned fetch and the copy in on the card.
 """
+
+import json
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -30,6 +36,33 @@ def test_host_array_result_matches_the_tensor_branch(shape, scale):
     assert isinstance(got, np.ndarray) and got.dtype == np.uint8
     assert got.flags.c_contiguous and got.flags.writeable
     assert np.array_equal(got, ref.numpy())
+
+
+_FRAMES = _u8((2, 14, 22, 3), 3)
+LAYOUTS = {"c_contiguous": lambda x: x,
+           "channels_reversed": lambda x: x[..., ::-1],
+           "strided_rows": lambda x: x[:, ::2],
+           "fortran_order": np.asfortranarray,
+           "int16": lambda x: x.astype(np.int16)}
+
+
+@pytest.mark.parametrize("layout", sorted(LAYOUTS))
+def test_host_array_of_any_layout_matches_the_tensor_branch_and_jax(
+        layout, weights):
+    from srcnn_cpp_tpu.pipeline import upscale_bgr_batch as jax_batch
+    from srcnn_cpp_tpu_torch.pipeline import upscale_bgr_batch
+    from srcnn_cpp_tpu_torch.weights import from_jax_params
+
+    frames = LAYOUTS[layout](_FRAMES)
+    w = from_jax_params(weights)
+    got = upscale_bgr_batch(frames, 2.0, w, device="cpu")
+    tensor = upscale_bgr_batch(torch.from_numpy(
+        np.array(frames, dtype=np.uint8)), 2.0, w, device="cpu")
+    ref = np.asarray(jax_batch(frames, 2.0, weights, kernel="xla",
+                               resize="exact"))
+    assert got.flags.c_contiguous and got.dtype == np.uint8
+    assert np.array_equal(got, tensor.numpy())
+    assert np.array_equal(got, ref)
 
 
 def test_host_array_result_shares_no_memory_with_the_input():
@@ -110,3 +143,47 @@ def test_cuda_held_result_is_unchanged_by_the_next_call():
     del nxt                                 # its block goes back to the cache
     upscale_bgr_batch(b, 2.0, w, "cuda")
     assert np.array_equal(held, before)
+
+
+@pytest.mark.cuda
+def test_cuda_host_array_goes_in_as_hwc_and_becomes_planar_on_the_card(
+        tmp_path):
+    from srcnn_cpp_tpu_torch.pipeline import upscale_bgr_batch, upscale_planar
+    from srcnn_cpp_tpu_torch.utils.profiling import trace
+
+    w = _card_weights()
+    frames = _u8((3, 36, 52, 3), 8)
+    upscale_bgr_batch(frames, 2.0, w, "cuda")      # builds before the trace
+    with trace(str(tmp_path)) as logdir:
+        got = upscale_bgr_batch(frames, 2.0, w, "cuda")
+    events = json.loads((Path(logdir) / "trace.json").read_text())[
+        "traceEvents"]
+
+    def spans(name):
+        return [e for e in events if e.get("cat") == "user_annotation"
+                and e.get("name") == name]
+
+    def inside(inner, outer):
+        return (outer["ts"] <= inner["ts"]
+                and inner["ts"] + inner["dur"] <= outer["ts"] + outer["dur"])
+
+    assert spans("srcnn.entry.host_transpose") == []
+    (h2d_span,), (planar_span,) = (spans("srcnn.entry.h2d"),
+                                   spans("srcnn.entry.to_planar"))
+    h2d = [e for e in events if e.get("cat") == "gpu_memcpy"
+           and "HtoD" in e.get("name", "")]
+    assert [e["args"].get("bytes") for e in h2d] == [frames.nbytes], h2d
+    assert inside(h2d[0], h2d_span)
+    launches = {e["args"]["correlation"]: e for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "correlation" in e.get("args", {})}
+    relayout = [e for e in events if e.get("cat") == "kernel"
+                and (launch := launches.get(e["args"].get("correlation")))
+                and inside(launch, planar_span)]
+    assert len(relayout) == 1, [e["name"] for e in relayout]
+    assert relayout[0]["ts"] >= h2d[0]["ts"] + h2d[0]["dur"]
+    # the parent's bytes: transposed on the host, then copied in planar
+    planar = torch.from_numpy(np.ascontiguousarray(
+        np.moveaxis(frames, -1, 1))).cuda()
+    ref = upscale_planar(planar, w, (72, 104)).permute(0, 2, 3, 1)
+    assert np.array_equal(got, ref.cpu().numpy())

@@ -81,7 +81,7 @@ def test_host_array_entry_writes_its_stages_in_order(tmp_path):
                      tmp_path)
     spans = _spans(events)
     assert [e["name"] for e in spans] == [
-        "srcnn.entry", "srcnn.entry.host_transpose", "srcnn.entry.h2d",
+        "srcnn.entry", "srcnn.entry.h2d", "srcnn.entry.to_planar",
         "srcnn.pipeline", "srcnn.entry.to_hwc", "srcnn.entry.fetch"]
     entry, children = spans[0], spans[1:]
     assert all(_inside(c, entry) for c in children)
@@ -89,7 +89,7 @@ def test_host_array_entry_writes_its_stages_in_order(tmp_path):
                for a, b in zip(children, children[1:]))
     assert len({e["tid"] for e in spans}) == 1
     # the copy's own ops sit inside its span: one clock for both
-    h2d = spans[2]
+    h2d = spans[1]
     ops = [e["name"] for e in events if e.get("cat") == "cpu_op"
            and _inside(e, h2d)]
     assert "aten::to" in ops, ops
