@@ -29,33 +29,12 @@ from pathlib import Path
 from . import __version__
 from .imageio import imread_bgr, imwrite_bgr
 from .pipeline import upscale_bgr
+from .runtime import DEVICES, cuda_missing
 from .utils.debug import EXIT_CODES
 from .utils.timer import TickTimer
 from .weights import load_weights
 
 _PROG = "srcnn-torch"
-DEVICES = ("cuda", "cpu")
-
-
-def device_name(device) -> str:
-    """The card's name for a CUDA device, ``"cpu"`` otherwise."""
-    import torch
-
-    device = torch.device(device)
-    return torch.cuda.get_device_name(device) if device.type == "cuda" \
-        else "cpu"
-
-
-def cuda_missing(device: str, prog: str) -> bool:
-    """True, after an error message on stderr, when ``device`` is ``cuda``
-    and no GPU is available: the CLIs never fall back to the CPU."""
-    import torch
-
-    if device != "cuda" or torch.cuda.is_available():
-        return False
-    print(f"{prog}: no CUDA device available (use --device=cpu to run "
-          "the plain PyTorch path)", file=sys.stderr)
-    return True
 
 
 class UsageError(ValueError):

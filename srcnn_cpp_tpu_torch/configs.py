@@ -20,7 +20,7 @@ import torch
 
 from .pipeline import u8_tensor, upscale_bgr, upscale_bgr_batch, weights_on
 from .stream import StreamUpscaler
-from .weights import SRCNNWeights, refuse_vdsr
+from .weights import SRCNNWeights, srcnn_only
 
 def batch_1080p_to_4k(weights: SRCNNWeights | None = None, batch: int = 32,
                       device="cuda"):
@@ -60,8 +60,9 @@ def single_8k(weights: SRCNNWeights | None = None, mesh=None,
     the result equals the unsharded runner's bit for bit.  A tensor (any
     device, any strides) becomes planar as a view, its blocks go from its
     device straight to theirs, and the result is joined and made HWC on
-    the input's device, unfetched; a host array is transposed on the host
-    and its blocks joined there.  Any H and W
+    the input's device, unfetched; a host array takes the same path as a
+    CPU tensor (:func:`.pipeline.u8_tensor`: copied in as it is, HWC) and
+    comes back as a host array.  Any H and W
     serve: an axis that does not divide the input or output size splits it
     unevenly (``tensor_split``).  A geometry whose blocks are too small for
     their halos raises ValueError.
@@ -79,30 +80,22 @@ def single_8k(weights: SRCNNWeights | None = None, mesh=None,
 
 def _single_8k_mesh(weights: SRCNNWeights | None, mesh, scale: float):
     from .ops.resize import scaled_size
-    from .parallel.tiling import (HALO, gather_blocks, split_blocks,
-                                  upscale_blocks)
+    from .parallel.tiling import gather_blocks, split_blocks, upscale_blocks
 
-    refuse_vdsr(weights, "single_8k(mesh=...)", f"SRCNN's {HALO} rows and "
-                f"columns")
+    srcnn_only(weights, "single_8k(mesh=...)")
     weights = weights_on(weights, "cpu") if weights is None else weights
 
     def run(bgr):
-        h, w = bgr.shape[:2]
+        hwc = u8_tensor(bgr)
+        h, w = hwc.shape[:2]
         ow, oh = scaled_size(w, h, scale)
-        tensor = isinstance(bgr, torch.Tensor)
-        if tensor:
-            planar = u8_tensor(bgr).permute(2, 0, 1)[None]
-        else:
-            # a host transpose, as the JAX runner's (srcnn_cpp_tpu/configs.py:119)
-            planar = torch.from_numpy(np.ascontiguousarray(
-                np.moveaxis(np.asarray(bgr, dtype=np.uint8), -1, 0)))[None]
+        planar = hwc.permute(2, 0, 1)[None]
         out = upscale_blocks(split_blocks(planar, mesh), weights, (h, w),
                              (oh, ow), mesh)
         # the JAX runner always fetches (srcnn_cpp_tpu/configs.py:125)
         out = gather_blocks(out, device=planar.device)[0]
-        if tensor:
-            return out.permute(1, 2, 0).contiguous()
-        return np.ascontiguousarray(np.moveaxis(out.numpy(), 0, -1))
+        out = out.permute(1, 2, 0).contiguous()
+        return out if isinstance(bgr, torch.Tensor) else out.numpy()
 
     return run
 

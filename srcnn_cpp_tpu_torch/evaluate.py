@@ -28,11 +28,11 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from .cli import DEVICES, cuda_missing, device_name
 from .imageio import decode_provenance, imread_bgr
 from .ops.color import bgr2ycrcb_u8_planar, ycrcb2bgr_u8_planar
 from .ops.resize import resize_separable
 from .ops.resize_tables import resize_bicubic_u8_np
+from .runtime import DEVICES, cuda_missing, device_name
 from .utils.metrics import psnr, ssim
 from .weights import load_weights
 

@@ -33,21 +33,20 @@ wrappers hand to the launcher.
 from __future__ import annotations
 
 import functools
-import weakref
 
 import torch
 
 from .. import runtime
 from ..utils.profiling import span
 from .color import ycrcb2bgr_u8_planar
-from ..weights.loader import CANONICAL, family_shapes
-from ..weights.vdsr import refuse_vdsr
+from ..weights.loader import _KEYS, CANONICAL, derived, family_shapes, \
+    srcnn_only
 from .srcnn import srcnn_y, srcnn_y_f32
 
 __all__ = ["srcnn_y_fused", "srcnn_y_plain", "srcnn_merge_fused",
            "srcnn_merge_plain", "srcnn_y_f32_fused", "srcnn_y_f32_plain",
            "pack_weights", "conv_tile_plan", "c_to_a_perm", "tf32_split",
-           "smem_descriptor"]
+           "smem_descriptor", "y_planes"]
 
 #: the kernel's geometry, mirrored by the constants in srcnn_conv.cu
 STRIP = 60                 # output columns of a work unit
@@ -127,26 +126,26 @@ def _k_major(m: torch.Tensor) -> torch.Tensor:
 
 
 def _pack(weights) -> torch.Tensor:
-    f32 = [getattr(weights, k).detach().to("cpu", torch.float32)
-           for k in ("conv1_w", "conv1_b", "conv2_w", "conv2_b", "conv3_w",
-                     "conv3_b")]
-    w1, b1, w2, b2, w3, b3 = f32
-    perm = c_to_a_perm()
-    m1 = torch.zeros((K1P, 64))
-    m1[:81] = w1.reshape(64, 81).t()
-    m2 = w2.reshape(32, 64)[:, perm].t()
-    m3 = torch.zeros((32, 32))
-    m3[:, :25] = w3.reshape(32, 25)[perm[:32]]
-    parts = []
-    for m, b in ((m1, b1.reshape(64)), (m2, b2.reshape(32)),
-                 (m3, torch.cat([b3.reshape(1), torch.zeros(3)]))):
-        parts += [_k_major(h) for h in tf32_split(m)] + [b]
-    packed = torch.cat(parts)
-    assert packed.numel() == PACKED_SIZE
-    return packed
+    _pack.calls += 1
+    with span("srcnn.build.weights"):
+        w1, b1, w2, b2, w3, b3 = (getattr(weights, k).detach().to(
+            "cpu", torch.float32) for k in _KEYS)
+        perm = c_to_a_perm()
+        m1 = torch.zeros((K1P, 64))
+        m1[:81] = w1.reshape(64, 81).t()
+        m2 = w2.reshape(32, 64)[:, perm].t()
+        m3 = torch.zeros((32, 32))
+        m3[:, :25] = w3.reshape(32, 25)[perm[:32]]
+        parts = []
+        for m, b in ((m1, b1.reshape(64)), (m2, b2.reshape(32)),
+                     (m3, torch.cat([b3.reshape(1), torch.zeros(3)]))):
+            parts += [_k_major(h) for h in tf32_split(m)] + [b]
+        packed = torch.cat(parts)
+        assert packed.numel() == PACKED_SIZE
+        return packed.to(weights.conv1_w.device)
 
 
-_PACKED: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
+_pack.calls = 0   # how often pack_weights really packed (not cached)
 
 
 def pack_weights(weights) -> torch.Tensor:
@@ -163,19 +162,8 @@ def pack_weights(weights) -> torch.Tensor:
     the buffer into shared memory as it is and points its matrix
     descriptors (:func:`b_descriptor`) at the planes.
     """
-    tensors = [getattr(weights, k) for k in ("conv1_w", "conv1_b", "conv2_w",
-                                              "conv2_b", "conv3_w", "conv3_b")]
-    key = tuple((t.data_ptr(), t._version) for t in tensors)
-    hit = _PACKED.get(weights)
-    if hit is None or hit[0] != key:
-        _pack.calls += 1
-        with span("srcnn.build.weights"):
-            hit = (key, _pack(weights).to(weights.conv1_w.device))
-        _PACKED[weights] = hit
-    return hit[1]
-
-
-_pack.calls = 0   # how often pack_weights really packed (not cached)
+    return derived(weights, "srcnn", [getattr(weights, k) for k in _KEYS],
+                   _pack, weights)
 
 
 def b_descriptor(plane: str, step: int, base: int = 0) -> int:
@@ -314,19 +302,27 @@ srcnn_y_f32_plain.calls = 0
 _SHAPES = family_shapes(*CANONICAL)
 
 
-def _check_device(x: torch.Tensor, weights) -> None:
-    refuse_vdsr(weights, "the SRCNN conv kernels (K1, K4, K5)",
-                "SRCNN's 6 pixels (9x9, 1x1, 5x5)")
+def _check_weights(weights) -> None:
+    srcnn_only(weights, "the SRCNN conv kernels (K1, K4, K5)")
     if any(tuple(getattr(weights, k).shape) != v for k, v in _SHAPES.items()):
         raise ValueError("the fused kernels take SRCNN 9-5-5 64/32 weights")
-    if weights.conv1_w.device != x.device:
-        raise ValueError(f"weights on {weights.conv1_w.device}, "
-                         f"input on {x.device}")
+
+
+def _on_device(x: torch.Tensor, device: torch.device) -> None:
+    """ValueError unless ``x`` is on ``device`` (the weights'), a CPU or
+    CUDA device."""
+    if device != x.device:
+        raise ValueError(f"weights on {device}, input on {x.device}")
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {x.device}")
 
 
-def _validate(y_u8: torch.Tensor, weights) -> None:
+def y_planes(y_u8: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """The input every network on Y takes: uint8 plane(s) ``[H, W]`` /
+    ``[B, H, W]``, each plane row-contiguous (frames of a batch at any
+    stride, e.g. ``up[:, 0]`` of a planar YCrCb batch), on ``device`` (the
+    weights').  Returns them as ``[B, H, W]``; raises TypeError or
+    ValueError otherwise."""
     if y_u8.dtype != torch.uint8:
         raise TypeError(f"expected uint8, got {y_u8.dtype}")
     if y_u8.dim() not in (2, 3) or min(y_u8.shape[-2:]) <= 0:
@@ -334,19 +330,23 @@ def _validate(y_u8: torch.Tensor, weights) -> None:
                          f"{tuple(y_u8.shape)}")
     if y_u8.stride(-1) != 1 or y_u8.stride(-2) != y_u8.shape[-1]:
         raise ValueError("each Y plane must be contiguous")
-    _check_device(y_u8, weights)
+    _on_device(y_u8, device)
+    return y_u8[None] if y_u8.dim() == 2 else y_u8
 
 
-def _launch_planes(wrapper, name: str, y_u8: torch.Tensor, weights,
-                   dtype: torch.dtype) -> torch.Tensor:
-    """Launch C entry ``name`` (K1 or K5) on Y plane(s) ``[H, W]`` /
-    ``[B, H, W]`` and count the launch on ``wrapper``."""
-    y3 = y_u8[None] if y_u8.dim() == 2 else y_u8
+def _planes(wrapper, plain, name: str, y_u8: torch.Tensor, weights,
+            dtype: torch.dtype) -> torch.Tensor:
+    """``plain`` on the CPU, else C entry ``name`` (K1 or K5) launched on
+    Y plane(s) ``[H, W]`` / ``[B, H, W]`` and counted on ``wrapper``."""
+    _check_weights(weights)
+    y3 = y_planes(y_u8, weights.conv1_w.device)
+    if y3.device.type == "cpu":
+        return plain(y_u8, weights)
     b, h, w = y3.shape
-    out = torch.empty((b, h, w), dtype=dtype, device=y_u8.device)
+    out = torch.empty((b, h, w), dtype=dtype, device=y3.device)
     if b > 0:
         packed = pack_weights(weights)
-        with torch.cuda.device(y_u8.device):
+        with torch.cuda.device(y3.device):
             runtime.check(getattr(runtime.library(), name)(
                 y3.data_ptr(), y3.stride(0), packed.data_ptr(),
                 out.data_ptr(), b, h, w, *_plan_args(b, h, w),
@@ -356,30 +356,21 @@ def _launch_planes(wrapper, name: str, y_u8: torch.Tensor, weights,
 
 
 def srcnn_y_fused(y_u8: torch.Tensor, weights) -> torch.Tensor:
-    """uint8 Y plane(s) ``[H, W]`` / ``[B, H, W]`` -> uint8, same shape.
-
-    Frames of a batch may sit at any stride (e.g. ``up[:, 0]`` of a planar
-    YCrCb batch); each plane must be row-contiguous.
-    """
-    _validate(y_u8, weights)
-    if y_u8.device.type == "cpu":
-        return srcnn_y_plain(y_u8, weights)
-    return _launch_planes(srcnn_y_fused, "srcnn_conv_u8", y_u8, weights,
-                          torch.uint8)
+    """uint8 Y plane(s) ``[H, W]`` / ``[B, H, W]`` (:func:`y_planes`) ->
+    uint8, same shape."""
+    return _planes(srcnn_y_fused, srcnn_y_plain, "srcnn_conv_u8", y_u8,
+                   weights, torch.uint8)
 
 
 srcnn_y_fused.launches = 0
 
 
 def srcnn_y_f32_fused(y_u8: torch.Tensor, weights) -> torch.Tensor:
-    """uint8 Y plane(s) ``[H, W]`` / ``[B, H, W]`` -> float32 conv3 + b3,
-    same shape, with the reference's border clamps and no quantization
-    (``quantize_trunc_u8`` of it is :func:`srcnn_y_fused`)."""
-    _validate(y_u8, weights)
-    if y_u8.device.type == "cpu":
-        return srcnn_y_f32_plain(y_u8, weights)
-    return _launch_planes(srcnn_y_f32_fused, "srcnn_conv_f32", y_u8, weights,
-                          torch.float32)
+    """uint8 Y plane(s) ``[H, W]`` / ``[B, H, W]`` (:func:`y_planes`) ->
+    float32 conv3 + b3, same shape, with the reference's border clamps and
+    no quantization (``quantize_trunc_u8`` of it is :func:`srcnn_y_fused`)."""
+    return _planes(srcnn_y_f32_fused, srcnn_y_f32_plain, "srcnn_conv_f32",
+                   y_u8, weights, torch.float32)
 
 
 srcnn_y_f32_fused.launches = 0
@@ -395,7 +386,8 @@ def srcnn_merge_fused(up: torch.Tensor, weights) -> torch.Tensor:
                          f"{tuple(up.shape)}")
     if not up.is_contiguous():
         raise ValueError("input must be contiguous")
-    _check_device(up, weights)
+    _check_weights(weights)
+    _on_device(up, weights.conv1_w.device)
     if up.device.type == "cpu":
         return srcnn_merge_plain(up, weights)
     b, _, h, w = up.shape

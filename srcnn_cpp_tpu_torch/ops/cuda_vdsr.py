@@ -23,14 +23,14 @@ gives its operands there (:func:`weight_descriptor`,
 from __future__ import annotations
 
 import functools
-import weakref
 
 import torch
 
 from .. import runtime
 from ..utils.profiling import span
+from ..weights.loader import derived
 from ..weights.vdsr import CHANNELS, VDSRWeights
-from .cuda_srcnn import _k_major, smem_descriptor, tf32_split
+from .cuda_srcnn import _k_major, smem_descriptor, tf32_split, y_planes
 from .vdsr import vdsr_y
 
 __all__ = ["vdsr_y_fused", "vdsr_y_plain", "pack_vdsr", "pack_layer",
@@ -115,39 +115,31 @@ def pack_layer(w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def _pack(weights: VDSRWeights) -> tuple:
-    (w1, b1), *mid, (wn, bn) = weights.layers
-    f32 = dict(device="cpu", dtype=torch.float32)
-    first = torch.cat([w1.detach().to(**f32).reshape(CHANNELS, TAPS).t()
-                       .reshape(-1), b1.detach().to(**f32).reshape(-1)])
-    last = torch.cat([wn.detach().to(**f32).reshape(CHANNELS, TAPS).t()
-                      .reshape(-1), bn.detach().to(**f32).reshape(1),
-                      torch.zeros(3)])
-    middle = torch.cat([pack_layer(w, b) for w, b in mid]) if mid \
-        else torch.zeros(4)
-    return tuple(t.to(weights.device) for t in (first, middle, last))
+    _pack.calls += 1
+    with span("srcnn.build.vdsr_weights"):
+        (w1, b1), *mid, (wn, bn) = weights.layers
+        f32 = dict(device="cpu", dtype=torch.float32)
+        first = torch.cat([w1.detach().to(**f32).reshape(CHANNELS, TAPS).t()
+                           .reshape(-1), b1.detach().to(**f32).reshape(-1)])
+        last = torch.cat([wn.detach().to(**f32).reshape(CHANNELS, TAPS).t()
+                          .reshape(-1), bn.detach().to(**f32).reshape(1),
+                          torch.zeros(3)])
+        middle = torch.cat([pack_layer(w, b) for w, b in mid]) if mid \
+            else torch.zeros(4)
+        return tuple(t.to(weights.device) for t in (first, middle, last))
 
 
-_PACKED: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
+_pack.calls = 0   # how often pack_vdsr really packed (not cached)
 
 
 def pack_vdsr(weights: VDSRWeights) -> tuple:
     """``(first, middle, last)``, the kernel's float32 weight buffers on
     the weights' device, built once per weights object and kept while its
-    tensors are unchanged: conv1 as ``[9][64]`` and its 64 biases; the
-    64->64 layers one after the other (:func:`pack_layer`); conv20 as
-    ``[9][64]``, its bias and 3 zeros."""
-    key = tuple((t.data_ptr(), t._version)
-                for t in weights.as_dict().values())
-    hit = _PACKED.get(weights)
-    if hit is None or hit[0] != key:
-        _pack.calls += 1
-        with span("srcnn.build.vdsr_weights"):
-            hit = (key, _pack(weights))
-        _PACKED[weights] = hit
-    return hit[1]
-
-
-_pack.calls = 0   # how often pack_vdsr really packed (not cached)
+    tensors are unchanged (:func:`..weights.loader.derived`): conv1 as
+    ``[9][64]`` and its 64 biases; the 64->64 layers one after the other
+    (:func:`pack_layer`); conv20 as ``[9][64]``, its bias and 3 zeros."""
+    return derived(weights, "vdsr", weights.as_dict().values(), _pack,
+                   weights)
 
 
 @functools.lru_cache(maxsize=256)
@@ -178,43 +170,24 @@ def vdsr_y_plain(y_u8: torch.Tensor, weights: VDSRWeights) -> torch.Tensor:
 vdsr_y_plain.calls = 0
 
 
-def _validate(y_u8: torch.Tensor, weights) -> None:
+def vdsr_y_fused(y_u8: torch.Tensor, weights: VDSRWeights) -> torch.Tensor:
+    """uint8 Y plane(s) ``[H, W]`` / ``[B, H, W]``
+    (:func:`.cuda_srcnn.y_planes`) -> uint8, same shape."""
     if not isinstance(weights, VDSRWeights):
         raise TypeError(f"the VDSR chain takes VDSRWeights, got "
                         f"{type(weights).__name__}")
-    if y_u8.dtype != torch.uint8:
-        raise TypeError(f"expected uint8, got {y_u8.dtype}")
-    if y_u8.dim() not in (2, 3) or min(y_u8.shape[-2:]) <= 0:
-        raise ValueError(f"expected Y [H,W] or [B,H,W], got "
-                         f"{tuple(y_u8.shape)}")
-    if y_u8.stride(-1) != 1 or y_u8.stride(-2) != y_u8.shape[-1]:
-        raise ValueError("each Y plane must be contiguous")
-    if weights.device != y_u8.device:
-        raise ValueError(f"weights on {weights.device}, input on "
-                         f"{y_u8.device}")
-    if y_u8.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {y_u8.device}")
-
-
-def vdsr_y_fused(y_u8: torch.Tensor, weights: VDSRWeights) -> torch.Tensor:
-    """uint8 Y plane(s) ``[H, W]`` / ``[B, H, W]`` -> uint8, same shape.
-
-    Frames of a batch may sit at any stride (e.g. ``up[:, 0]`` of a planar
-    YCrCb batch); each plane must be row-contiguous.
-    """
-    _validate(y_u8, weights)
+    y3 = y_planes(y_u8, weights.device)
     with span("srcnn.vdsr"):
-        if y_u8.device.type == "cpu":
+        if y3.device.type == "cpu":
             return vdsr_y_plain(y_u8, weights)
-        y3 = y_u8[None] if y_u8.dim() == 2 else y_u8
         b, h, w = y3.shape
-        out = torch.empty((b, h, w), dtype=torch.uint8, device=y_u8.device)
+        out = torch.empty((b, h, w), dtype=torch.uint8, device=y3.device)
         if b > 0:
             first, middle, last = pack_vdsr(weights)
             plan = vdsr_plan(h, w, runtime.num_sms())
             act = torch.empty((2, h * w * CHANNELS), dtype=torch.float32,
-                              device=y_u8.device)
-            with torch.cuda.device(y_u8.device):
+                              device=y3.device)
+            with torch.cuda.device(y3.device):
                 runtime.check(runtime.library().vdsr_y_u8(
                     y3.data_ptr(), y3.stride(0), first.data_ptr(),
                     middle.data_ptr(), last.data_ptr(), act[0].data_ptr(),

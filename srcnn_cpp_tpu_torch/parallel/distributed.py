@@ -46,10 +46,10 @@ import torch
 import torch.distributed as dist
 
 from ..ops.resize import scaled_size
-from ..weights import SRCNNWeights, load_weights, refuse_vdsr
+from ..runtime import cuda_missing
+from ..weights import SRCNNWeights, load_weights, srcnn_only
 from .mesh import Mesh, _device
-from .tiling import (HALO, bounds, gather_blocks, pre_upscale_halos,
-                     upscale_blocks)
+from .tiling import bounds, gather_blocks, pre_upscale_halos, upscale_blocks
 
 _PROG = "srcnn-torch-distributed"
 
@@ -150,8 +150,7 @@ class DistributedStream:
         if gather not in ("local", "full"):
             raise ValueError(f"gather must be 'local' or 'full', not "
                              f"{gather!r}")
-        refuse_vdsr(weights, "parallel.distributed", f"SRCNN's {HALO} "
-                    f"rows, exchanged between the row blocks")
+        srcnn_only(weights, "parallel.distributed")
         if mesh.shape["col"] != 1:
             raise ValueError("the stream tiles rows only: col must be 1")
         self.scale, self.mesh = float(scale), mesh
@@ -499,8 +498,6 @@ def main(argv=None) -> int:
                     help="run the sharded trainer instead of inference")
     ap.add_argument("--train-steps", type=int, default=3)
     args = ap.parse_args(argv)
-
-    from ..cli import cuda_missing
 
     if cuda_missing(args.device, _PROG):
         return 1

@@ -63,7 +63,8 @@ from ..ops.cuda_merge import merge_ycrcb_to_bgr_fused
 from ..ops.cuda_resize import PreWindow, pre_upscale_fused, window_source
 from ..ops.cuda_srcnn import srcnn_y_fused
 from ..ops.srcnn import fp32_strict
-from ..weights import refuse_vdsr, weights_on
+from ..weights import srcnn_only, weights_on
+from ..weights.loader import _KEYS, HALO
 from .mesh import Mesh
 
 __all__ = ["HALO", "split_blocks", "gather_blocks", "srcnn_blocks",
@@ -71,8 +72,6 @@ __all__ = ["HALO", "split_blocks", "gather_blocks", "srcnn_blocks",
            "pre_upscale_fused_rows", "merge_blocks",
            "merge_ycrcb_to_bgr_fused_rows", "upscale_blocks"]
 
-#: receptive-field radius of the 9-1-5 conv stack: conv1's 4 + conv3's 2
-HALO = 6
 #: the tensor dimension each spatial mesh axis splits
 _DIM = {1: -2, 2: -1}
 
@@ -274,10 +273,9 @@ def _check_min(n: int, parts: int, what: str) -> None:
 def srcnn_blocks(blocks: np.ndarray, weights, mesh: Mesh) -> np.ndarray:
     """K1 on each block of a grid of Y blocks ``[b, h, w]`` u8 (rows and
     columns of one frame, halos from the neighbours on interior sides
-    only); returns the grid of ``[b, h, w]`` u8 outputs.  VDSR weights
-    raise TypeError: the blocks' halo is SRCNN's."""
-    refuse_vdsr(weights, "parallel.tiling", f"SRCNN's {HALO} rows and "
-                f"columns")
+    only); returns the grid of ``[b, h, w]`` u8 outputs.  Another
+    network's weights raise TypeError: the blocks' halo is SRCNN's."""
+    srcnn_only(weights, "parallel.tiling")
     ext_c, lc = _exchange(blocks, mesh, 2, HALO, HALO)
     ext, lr = _exchange(ext_c, mesh, 1, HALO, HALO)
     out = np.empty(blocks.shape, dtype=object)
@@ -461,9 +459,6 @@ def _clamp_feature_edges(blocks: np.ndarray, mesh: Mesh, axis: int,
     return out
 
 
-_KEYS = ("conv1_w", "conv1_b", "conv2_w", "conv2_b", "conv3_w", "conv3_b")
-
-
 def _params_on(weights, device: torch.device):
     """The six parameters on ``device``, differentiably (autograd adds each
     copy's gradient into the original)."""
@@ -481,8 +476,7 @@ def _srcnn_tile_f32(blocks: np.ndarray, weights, mesh: Mesh) -> np.ndarray:
     the true edges, conv3 valid; a rows-only mesh is the ``col == 1`` case.
     ``weights``: an ``SRCNNWeights`` or :class:`..models.SRCNN` with 9x9,
     1x1 and 5x5 filters."""
-    refuse_vdsr(weights, "parallel.tiling", f"SRCNN's {HALO} rows and "
-                f"columns")
+    srcnn_only(weights, "parallel.tiling")
     ks = tuple(getattr(weights, k).shape[-1] for k in ("conv1_w", "conv2_w",
                                                       "conv3_w"))
     if ks != (9, 1, 5):

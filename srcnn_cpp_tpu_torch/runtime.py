@@ -26,6 +26,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import sys
 import tempfile
 import time
 from pathlib import Path
@@ -168,3 +169,28 @@ def num_sms() -> int:
     import torch
 
     return _sm_count(torch.cuda.current_device())
+
+
+#: the devices the CLIs take (``--device``)
+DEVICES = ("cuda", "cpu")
+
+
+def device_name(device) -> str:
+    """The card's name for a CUDA device, ``"cpu"`` otherwise."""
+    import torch
+
+    device = torch.device(device)
+    return torch.cuda.get_device_name(device) if device.type == "cuda" \
+        else "cpu"
+
+
+def cuda_missing(device: str, prog: str) -> bool:
+    """True, after an error message on stderr, when ``device`` is ``cuda``
+    and no GPU is available: the CLIs never fall back to the CPU."""
+    import torch
+
+    if device != "cuda" or torch.cuda.is_available():
+        return False
+    print(f"{prog}: no CUDA device available (use --device=cpu to run "
+          "the plain PyTorch path)", file=sys.stderr)
+    return True

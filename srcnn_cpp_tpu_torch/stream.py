@@ -12,13 +12,13 @@ stream takes a host or device array; results are host arrays either way.
 On a CUDA device, a micro-batch of host frames is staged in a pinned host
 buffer and copied in; one that holds a tensor is stacked on the card
 instead (a frame already there is not copied).  Then the pipeline
-(:func:`.pipeline.upscale_planar`: K2 -> the weights' network -> K3, with
-the HWC <-> planar transposes on the card) and the device-to-host copy into
-a pinned output buffer are enqueued on the current CUDA stream, an event is
-recorded and ``push`` returns; a result is read only once the pipeline depth is
-reached, after its event has completed.  On the CPU each micro-batch runs
-the plain pipeline at once.  ``--device=cuda`` (the default) without a GPU
-is an error.
+(:func:`.pipeline.upscale_hwc`, as ``upscale_bgr_batch`` runs it: the
+relayouts on the card around K2 -> the weights' network -> K3) and the
+device-to-host copy into a pinned output buffer are enqueued on the
+current CUDA stream, an event is recorded and ``push`` returns; a result
+is read only once the pipeline depth is reached, after its event has
+completed.  On the CPU each micro-batch runs the plain pipeline at once.
+``--device=cuda`` (the default) without a GPU is an error.
 """
 
 from __future__ import annotations
@@ -31,9 +31,10 @@ import time
 import numpy as np
 import torch
 
-from .cli import DEVICES, cuda_missing, device_name
 from .ops.resize import scaled_size
-from .pipeline import u8_tensor, upscale_bgr_batch, upscale_planar, weights_on
+from .pipeline import (u8_tensor, upscale_bgr_batch, upscale_hwc,
+                       upscale_planar, weights_on)
+from .runtime import DEVICES, cuda_missing, device_name
 from .utils.profiling import span
 from .weights import SRCNNWeights
 
@@ -109,7 +110,6 @@ class StreamUpscaler:
         tensors = any(isinstance(f, torch.Tensor) for f in frames)
         h, w = frames[0].shape[:2]
         pin_in, pin_out = self._slot(h, w)
-        ow, oh = scaled_size(w, h, self.scale)
         with torch.cuda.device(self.device):
             with span("srcnn.stream.stage_in"):
                 if tensors:
@@ -119,10 +119,8 @@ class StreamUpscaler:
             with span("srcnn.stream.dispatch"):
                 if not tensors:
                     x = pin_in[:n].to(self.device, non_blocking=True)
-                out = upscale_planar(x.permute(0, 3, 1, 2).contiguous(),
-                                     self.weights, (oh, ow))
-                pin_out[:n].copy_(out.permute(0, 2, 3, 1).contiguous(),
-                                  non_blocking=True)
+                out = upscale_hwc(x, self.scale, self.weights, self.device)
+                pin_out[:n].copy_(out, non_blocking=True)
                 done = torch.cuda.Event()
                 done.record()
         self._inflight.append((done, pin_out[:n]))

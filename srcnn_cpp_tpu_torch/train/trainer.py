@@ -19,9 +19,9 @@ import sys
 
 import torch
 
-from ..cli import DEVICES, cuda_missing, device_name
 from ..models import SRCNN
 from ..parallel import make_mesh
+from ..runtime import DEVICES, cuda_missing, device_name
 from ..weights import SRCNNWeights
 from ..weights.checkpoint import save_npz
 from .data import dataset_from_dir, iterate_minibatches

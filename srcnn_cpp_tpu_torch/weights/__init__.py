@@ -3,9 +3,9 @@ checkpoints (:mod:`.checkpoint`), VDSR's container and loader
 (:mod:`.vdsr`)."""
 
 from .loader import (CANONICAL, SRCNNWeights, from_jax_params, load_weights,
-                     weights_npz, weights_on)
-from .vdsr import VDSRWeights, load_vdsr_weights, refuse_vdsr
+                     srcnn_only, weights_npz, weights_on)
+from .vdsr import VDSRWeights, load_vdsr_weights
 
 __all__ = ["CANONICAL", "SRCNNWeights", "VDSRWeights", "from_jax_params",
-           "load_vdsr_weights", "load_weights", "refuse_vdsr", "weights_npz",
+           "load_vdsr_weights", "load_weights", "srcnn_only", "weights_npz",
            "weights_on"]

@@ -4,6 +4,11 @@ The pretrained checkpoint is ``srcnn955.npz`` beside this file: the
 reference's compiled-in src/convdata.h as an artifact, a copy of the JAX
 package's ``srcnn_cpp_tpu/weights/srcnn955.npz`` (``tests/
 test_torch_models_ckpt.py`` holds the two equal).  It is read with NumPy.
+
+Two rules every network's weights share live here too: a value derived
+from weights is cached per weights object until a tensor changes
+(:func:`derived`), and the paths that reach SRCNN's halo only refuse any
+other network (:func:`srcnn_only`).
 """
 
 from __future__ import annotations
@@ -20,6 +25,8 @@ _KEYS = ("conv1_w", "conv1_b", "conv2_w", "conv2_b", "conv3_w", "conv3_b")
 #: the canonical configuration ``(n1, n2, f1, f2, f3)`` of the checkpoint
 #: and of the fused kernels (reference src/convdata.h:4-16)
 CANONICAL = (64, 32, 9, 1, 5)
+#: the canonical network's receptive-field radius: conv1's 4 + conv3's 2
+HALO = sum(f // 2 for f in CANONICAL[2:])
 
 
 def weights_npz() -> Path:
@@ -107,7 +114,37 @@ def load_weights(path: Path | str | None = None, device="cpu") -> SRCNNWeights:
 
 
 _DEFAULT: dict = {}
-_MOVED: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
+_DERIVED: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
+
+
+def derived(weights, slot, tensors, build, *args):
+    """``build(*args)``, a value derived from ``weights`` (a copy, a packed
+    buffer), kept per weights object and ``slot`` while ``tensors``, those
+    it is derived from, are unchanged: the same storage and no in-place
+    edit since (``data_ptr()``, ``_version``).  Built again otherwise."""
+    key = tuple((t.data_ptr(), t._version) for t in tensors)
+    per = _DERIVED.get(weights)
+    if per is None:
+        per = _DERIVED[weights] = {}
+    hit = per.get(slot)
+    if hit is None or hit[0] != key:
+        hit = per[slot] = (key, build(*args))
+    return hit[1]
+
+
+def srcnn_only(weights, where: str) -> None:
+    """TypeError unless ``weights`` are SRCNN's (its parameter names; None
+    is its checkpoint): ``where`` reaches SRCNN's :data:`HALO` pixels only.
+    The message names the halo that the weights' network states
+    (``halo``, a class attribute), where it states one."""
+    if weights is None or all(hasattr(weights, k) for k in _KEYS):
+        return
+    name, halo = type(weights).__name__, getattr(weights, "halo", None)
+    got = (f"{name} needs a {halo}-pixel halo ({2 * halo + 1}x{2 * halo + 1}"
+           f" receptive field), which it lacks" if halo is not None
+           else f"got {name}")
+    raise TypeError(f"{where} takes SRCNN weights only: its halo is SRCNN's "
+                    f"{HALO} pixels; {got}")
 
 
 def _canonical(device) -> torch.device:
@@ -125,8 +162,8 @@ def weights_on(weights, device):
     The checkpoint is loaded once per process and device.  Weights that
     live on ``device`` (``cuda`` and ``cuda:<current>`` are one device)
     come back as they are; others are copied once per device and the copy
-    is kept while their tensors are unchanged, so the kernels' packed
-    weights, cached per weights object, are built once.
+    is kept while their tensors are unchanged (:func:`derived`), so the
+    kernels' packed weights, cached per weights object, are built once.
     """
     device = _canonical(device)
     if weights is None:
@@ -136,9 +173,5 @@ def weights_on(weights, device):
         return hit
     if weights.device == device:
         return weights
-    key = tuple((t.data_ptr(), t._version) for t in weights.as_dict().values())
-    per = _MOVED.setdefault(weights, {})
-    hit = per.get(device)
-    if hit is None or hit[0] != key:
-        hit = per[device] = (key, weights.to(device))
-    return hit[1]
+    return derived(weights, device, weights.as_dict().values(), weights.to,
+                   device)

@@ -39,6 +39,8 @@ class VDSRWeights:
     (:func:`vdsr_shapes`)."""
 
     layers: tuple[tuple[torch.Tensor, torch.Tensor], ...]
+    #: receptive-field radius: each 3x3 layer reaches one pixel further
+    halo = DEPTH * (KERNEL // 2)
 
     def __post_init__(self):
         got = {k: tuple(v.shape) for k, v in self.as_dict().items()}
@@ -74,12 +76,3 @@ def load_vdsr_weights(path: Path | str, device="cpu") -> VDSRWeights:
             for i in range(1, DEPTH + 1))
     return VDSRWeights(layers)
 
-
-def refuse_vdsr(weights, where: str, halo: str) -> None:
-    """TypeError where ``weights`` are VDSR's and ``where`` carries only
-    SRCNN's ``halo``: VDSR's 20 3x3 layers reach 20 pixels (a 41x41
-    receptive field), which no tiled or merged SRCNN path has."""
-    if isinstance(weights, VDSRWeights):
-        raise TypeError(f"{where} takes SRCNN weights only: its halo is "
-                        f"{halo}; VDSR needs a 20-pixel halo (41x41 "
-                        f"receptive field), which it lacks")

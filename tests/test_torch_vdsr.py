@@ -7,7 +7,8 @@ port's entry points against the benchmark's plain reference
 weights at their published widths (20 layers of 64 maps), drive the
 benchmark's cell through ``run.run_cell`` at a small size, plant faults
 that its comparison must catch, check that the SRCNN-only paths refuse
-VDSR weights, and check the kernel's packed layout, stage layout and
+VDSR's weights and any other network's, that derived weights follow one
+cache rule, and check the kernel's packed layout, stage layout and
 descriptors by decoding them as wgmma reads them.
 
 Tests marked ``cuda`` compare the kernel with its plain version on the
@@ -90,6 +91,33 @@ def test_the_container_holds_the_published_network(vdsr):
     with pytest.raises(ValueError):
         VDSRWeights(((vdsr.layers[1][0], vdsr.layers[1][1]),
                      *vdsr.layers[1:]))
+
+
+@pytest.mark.parametrize("net", ["srcnn", "vdsr"])
+def test_one_cache_rule_for_derived_weights(vdsr, net):
+    # weights_on's copy and the kernel's packed buffer follow one rule
+    # (weights.loader.derived): kept while the object's tensors are
+    # untouched, built once more after an in-place edit of one of them
+    from srcnn_cpp_tpu_torch.ops import cuda_srcnn, cuda_vdsr
+    from srcnn_cpp_tpu_torch.weights import load_weights, weights_on
+
+    if net == "srcnn":
+        w, ops, pack = load_weights(), cuda_srcnn, cuda_srcnn.pack_weights
+        edited = w.conv3_b
+    else:
+        w, ops, pack = vdsr.to("cpu"), cuda_vdsr, cuda_vdsr.pack_vdsr
+        edited = w.layers[7][0]
+    moved, packed = weights_on(w, "meta"), pack(w)
+    calls = ops._pack.calls
+    assert moved.device == torch.device("meta")
+    assert weights_on(w, "meta") is moved and pack(w) is packed
+    assert ops._pack.calls == calls
+    edited.add_(0)                      # in place: its version moves on
+    again = weights_on(w, "meta")
+    assert again is not moved and weights_on(w, "meta") is again
+    repacked = pack(w)
+    assert repacked is not packed and pack(w) is repacked
+    assert ops._pack.calls == calls + 1
 
 
 def test_the_loader_refuses_another_checkpoint():
@@ -277,6 +305,42 @@ def test_the_srcnn_kernels_refuse_vdsr(vdsr, kernel):
                              else (8, 8), 6))
     with pytest.raises(TypeError, match="halo"):
         getattr(cuda_srcnn, kernel)(x, vdsr)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class _ThirdNetWeights:
+    """Weights of a network that is neither SRCNN nor VDSR."""
+    w: torch.Tensor
+    halo = 3
+
+
+@pytest.mark.parametrize("weights", ["vdsr", "third", "stateless"])
+def test_the_srcnn_only_paths_refuse_any_other_network(vdsr, weights):
+    # one rule (weights.srcnn_only), keyed on SRCNN's parameter names: a
+    # third network is refused where it first meets an SRCNN-only path,
+    # by the tiled K1 and the mesh runner alike, with one message shape
+    from srcnn_cpp_tpu_torch.configs import single_8k
+    from srcnn_cpp_tpu_torch.parallel import make_mesh
+    from srcnn_cpp_tpu_torch.parallel.tiling import (split_blocks,
+                                                     srcnn_blocks)
+
+    w = {"vdsr": vdsr, "third": _ThirdNetWeights(torch.zeros(3)),
+         "stateless": object()}[weights]
+    need = {"vdsr": "VDSRWeights needs a 20-pixel halo (41x41 receptive "
+                    "field), which it lacks",
+            "third": "_ThirdNetWeights needs a 3-pixel halo (7x7 receptive "
+                     "field), which it lacks",
+            "stateless": "got object"}[weights]
+    mesh = make_mesh(1, 2, devices=["cpu"] * 2)
+    y = torch.from_numpy(_u8((1, 16, 16), 5))
+    for where, call in (
+            ("parallel.tiling",
+             lambda: srcnn_blocks(split_blocks(y, mesh), w, mesh)),
+            ("single_8k(mesh=...)", lambda: single_8k(w, mesh=mesh))):
+        with pytest.raises(TypeError) as e:
+            call()
+        assert str(e.value) == (f"{where} takes SRCNN weights only: its "
+                                f"halo is SRCNN's 6 pixels; {need}")
 
 
 def test_the_chain_refuses_srcnn_weights():
