@@ -49,11 +49,11 @@ read just after:
   ``scaling_efficiency`` as one card's tiling overhead (19);
 * phase 20, ``utils.profiling`` on the main path: a ``trace`` of
   ``upscale_bgr_batch`` on host arrays that must name the path's three
-  kernels, show no device-to-host copy between K2 and K1 and exactly one
-  after K3, of the HWC result's bytes, inside the program's
-  ``srcnn.entry.fetch`` span, and K2's, K1's and K3's launches inside its
-  ``srcnn.pipeline`` span: the program's spans and the card's activities
-  on one clock;
+  kernels, show no device-to-host copy between K2 and K1 and one after
+  each chunk's K3 (``pipeline.chunks``), of that chunk's HWC bytes,
+  enqueued inside the program's ``srcnn.entry.fetch`` spans, and K2's,
+  K1's and K3's launches inside its ``srcnn.pipeline`` spans: the
+  program's spans and the card's activities on one clock;
 * phase 21, ``upscale_bgr_batch`` with a CUDA tensor: a CUDA tensor out,
   bit-equal to ``upscale_planar`` after the permute, one launch of each
   kernel, no device-to-host copy in its trace; timed beside
@@ -1417,7 +1417,7 @@ def within(inner: dict, outer: dict) -> bool:
 
 
 def phase_profiling(e: Extra, frames: np.ndarray) -> None:
-    from srcnn_cpp_tpu_torch.pipeline import upscale_bgr_batch
+    from srcnn_cpp_tpu_torch.pipeline import chunks, upscale_bgr_batch
 
     say(f"phase 20: utils.profiling on the main path, [{BATCH},{IH},{IW},3] "
         f"host arrays x{SCALE:g}")
@@ -1432,43 +1432,52 @@ def phase_profiling(e: Extra, frames: np.ndarray) -> None:
     say(f"  trace(): device copies between K2 and K1: {copies or 'none'}")
     if any("DtoH" in c for c in copies):
         raise AssertionError("a device-to-host copy between K2 and K1")
-    # and after K3 it fetches the HWC result once, contiguous
-    k3 = found["merge_vec_kernel"][-1]
-    d2h = d2h_copies(events)
+    # and after each chunk's K3 it fetches that chunk's HWC result, the
+    # chunks' copies adding up to the whole result
+    parts = chunks(*frames.shape[:3])
+    kernels = {k: sorted((ev for ev in v if ev.get("cat") == "kernel"),
+                         key=lambda ev: ev["ts"]) for k, v in found.items()}
+    k3s = kernels["merge_vec_kernel"]
+    d2h = sorted(d2h_copies(events), key=lambda ev: ev["ts"])
     say("  trace(): device-to-host copies: " + (", ".join(
-        f"{ev['name']} of {ev.get('args', {}).get('bytes')} bytes, "
-        f"{'after' if ev['ts'] > k3['ts'] else 'before'} K3" for ev in d2h)
-        or "none"))
-    if len(d2h) != 1 or d2h[0]["ts"] <= k3["ts"] \
-            or d2h[0].get("args", {}).get("bytes") != BATCH * OH * OW * 3:
-        raise AssertionError(f"expected one device-to-host copy of "
-                             f"{BATCH * OH * OW * 3} bytes after K3")
-    # the program's spans share the device's clock: the copy lies in the
-    # fetch's span, and each kernel's launch in the pipeline's
+        f"{ev['name']} of {ev.get('args', {}).get('bytes')} bytes"
+        for ev in d2h) or "none"))
+    sizes = [(p.stop - p.start) * OH * OW * 3 for p in parts]
+    if [ev.get("args", {}).get("bytes") for ev in d2h] != sizes \
+            or len(k3s) != len(parts) or any(
+                c["ts"] < k["ts"] + k["dur"] for c, k in zip(d2h, k3s)):
+        raise AssertionError(f"expected {len(parts)} device-to-host copies "
+                             f"of {sizes} bytes, each after its chunk's K3")
+    # the program's spans share the device's clock: each copy is enqueued
+    # in a fetch span, and each kernel's launch lies in a pipeline span
     fetch = spans_named(events, "srcnn.entry.fetch")
     pipe = spans_named(events, "srcnn.pipeline")
-    if len(fetch) != 1 or len(pipe) != 1:
-        raise AssertionError(f"expected one srcnn.entry.fetch and one "
-                             f"srcnn.pipeline span, got {len(fetch)} and "
+    if len(fetch) != len(parts) or len(pipe) != len(parts):
+        raise AssertionError(f"expected {len(parts)} srcnn.entry.fetch and "
+                             f"srcnn.pipeline spans, got {len(fetch)} and "
                              f"{len(pipe)}")
-    fetch, pipe = fetch[0], pipe[0]
-    say(f"  trace(): the copy starts {d2h[0]['ts'] - fetch['ts']:.1f} us "
-        f"into srcnn.entry.fetch and ends "
-        f"{fetch['ts'] + fetch['dur'] - d2h[0]['ts'] - d2h[0]['dur']:.1f} us"
-        f" before its end")
-    if not within(d2h[0], fetch):
-        raise AssertionError("the device-to-host copy lies outside "
-                             "srcnn.entry.fetch")
     launches = {ev["args"]["correlation"]: ev for ev in events
                 if ev.get("cat") in ("cuda_runtime", "cuda_driver")
                 and "correlation" in ev.get("args", {})}
-    for k, kernel in (("K2", k2), ("K1", k1), ("K3", k3)):
-        launch = launches.get(kernel.get("args", {}).get("correlation"))
-        if launch is None or not within(launch, pipe):
-            raise AssertionError(f"{k}'s launch is not inside srcnn.pipeline"
-                                 f" ({launch and launch['name']})")
-    say(f"  trace(): K2, K1, K3 launched inside srcnn.pipeline "
-        f"({pipe['dur']:.1f} us of host time)")
+
+    def launched_in(ev, spans):
+        launch = launches.get(ev.get("args", {}).get("correlation"))
+        return launch is not None and any(within(launch, s) for s in spans)
+
+    if not all(launched_in(c, fetch) for c in d2h):
+        raise AssertionError("a device-to-host copy was enqueued outside "
+                             "srcnn.entry.fetch")
+    for k in ("pre_pass_kernel", "srcnn_conv_kernel", "merge_vec_kernel"):
+        if not all(launched_in(ev, pipe) for ev in kernels[k]):
+            raise AssertionError(f"a launch of {k} is not inside "
+                                 f"srcnn.pipeline")
+    busy = [ev for ev in events if ev.get("cat") == "kernel"]
+    hidden = [c for c in d2h + h2d_copies(events) if any(
+        k["ts"] < c["ts"] + c["dur"] and c["ts"] < k["ts"] + k["dur"]
+        for k in busy)]
+    say(f"  trace(): {len(parts)} chunks; K2, K1, K3 launched inside "
+        f"srcnn.pipeline ({sum(s['dur'] for s in pipe):.1f} us of host "
+        f"time); {len(hidden)} copies overlap a kernel")
     say(f"  trace(): {size} bytes of Chrome trace JSON, {len(events)} "
         f"events; " + "; ".join(
             f"{k}: {len(v)} event(s), {sum(ev.get('dur', 0) for ev in v):.1f}"

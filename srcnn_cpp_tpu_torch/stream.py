@@ -10,8 +10,9 @@ overlap device compute, plus a CLI:
 ``push`` takes a host array or a ``torch.Tensor`` on any device, as the JAX
 stream takes a host or device array; results are host arrays either way.
 On a CUDA device, a micro-batch of host frames is staged in a pinned host
-buffer and copied in; one that holds a tensor is stacked on the card
-instead (a frame already there is not copied).  Then the pipeline
+buffer and copied in by the pipeline's stage-in step
+(:func:`.pipeline.stage_in`); one that holds a tensor is stacked on the
+card instead (a frame already there is not copied).  Then the pipeline
 (:func:`.pipeline.upscale_hwc`, as ``upscale_bgr_batch`` runs it: the
 relayouts on the card around K2 -> the weights' network -> K3) and the
 device-to-host copy into a pinned output buffer are enqueued on the
@@ -32,8 +33,8 @@ import numpy as np
 import torch
 
 from .ops.resize import scaled_size
-from .pipeline import (u8_tensor, upscale_bgr_batch, upscale_hwc,
-                       upscale_planar, weights_on)
+from .pipeline import (pinned, stage_in, u8_tensor, upscale_bgr_batch,
+                       upscale_hwc, upscale_planar, weights_on)
 from .runtime import DEVICES, cuda_missing, device_name
 from .utils.profiling import span
 from .weights import SRCNNWeights
@@ -49,10 +50,12 @@ class StreamUpscaler:
     batch=1 (every kernel works frame by frame) and frame order is
     preserved; latency grows by up to ``batch-1`` frames.
 
-    On CUDA, the pinned staging buffers form a ring of ``depth + 1`` input /
-    output pairs: a dispatch takes the next pair, and at that moment at most
-    ``depth`` earlier dispatches are in flight, so the pair it takes belongs
-    to one whose event has completed and whose output has been copied out.
+    On CUDA, the pinned staging buffers (blocks of torch's caching host
+    allocator, :func:`.pipeline.pinned`, held for the ring's life) form a
+    ring of ``depth + 1`` input / output pairs: a dispatch takes the next
+    pair, and at that moment at most ``depth`` earlier dispatches are in
+    flight, so the pair it takes belongs to one whose event has completed
+    and whose output has been copied out.
     No buffer is written by the host while a copy from or into it may run.
 
     Under a ``torch.profiler`` session a dispatch records the spans
@@ -80,12 +83,9 @@ class StreamUpscaler:
             while self._inflight:       # the old ring is in use until drained
                 self._complete_oldest()
             ow, oh = scaled_size(w, h, self.scale)
-            self._ring = [
-                (torch.empty((self.batch, h, w, 3), dtype=torch.uint8,
-                             pin_memory=True),
-                 torch.empty((self.batch, oh, ow, 3), dtype=torch.uint8,
-                             pin_memory=True))
-                for _ in range(self.depth + 1)]
+            self._ring = [(pinned((self.batch, h, w, 3)),
+                           pinned((self.batch, oh, ow, 3)))
+                          for _ in range(self.depth + 1)]
             self._shape, self._next = (h, w), 0
         pair = self._ring[self._next]
         self._next = (self._next + 1) % len(self._ring)
@@ -112,13 +112,9 @@ class StreamUpscaler:
         pin_in, pin_out = self._slot(h, w)
         with torch.cuda.device(self.device):
             with span("srcnn.stream.stage_in"):
-                if tensors:
-                    x = self._stack(frames)
-                else:
-                    np.stack(frames, out=pin_in.numpy()[:n])
+                x = (self._stack(frames) if tensors
+                     else stage_in(frames, pin_in[:n], self.device))
             with span("srcnn.stream.dispatch"):
-                if not tensors:
-                    x = pin_in[:n].to(self.device, non_blocking=True)
                 out = upscale_hwc(x, self.scale, self.weights, self.device)
                 pin_out[:n].copy_(out, non_blocking=True)
                 done = torch.cuda.Event()
