@@ -81,7 +81,14 @@ read just after:
   ``portbench/configs/vdsr20_seeded.npz``: ``upscale_planar`` launches it
   once and K1 never, bit-equal to K2 -> the chain -> K3; each of the 8
   planes within 1 LSB of the fp32 ``F.conv2d`` path on under 0.5 % of
-  pixels; timed beside the plain path and its bound.
+  pixels; timed beside the plain path and its bound;
+* phase 26, RCAN x2 ``rcan_fused`` (10 groups of 20 RCABs, the 64->64
+  conv's epilogues, channel attention) at its cell's shapes, 4 frames of
+  1080x1920 -> 2160x3840 with the seeded weights of
+  ``portbench/configs/rcan_x2_seeded.jsonl``: ``upscale_planar`` launches it
+  once and K2, K1, K3 never; each frame within 1 LSB of the fp32
+  ``F.conv2d`` path (TF32 off) on under 0.5 % of bytes; the share off, ms
+  a frame and the kernels a call, beside the plain path and its bound.
 
 Each phase from 7 on prints its wall time.
 
@@ -111,6 +118,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 VDSR_NPZ = ROOT / "portbench/configs/vdsr20_seeded.npz"
+RCAN_RECIPE = ROOT / "portbench/configs/rcan_x2_seeded.jsonl"
 SEED = 0
 # x2 main-path geometry: 4 frames of 540x960 -> 1080x1920
 BATCH, IH, IW, SCALE = 4, 540, 960, 2.0
@@ -497,6 +505,7 @@ def main() -> int:
           {**mesh_host_ms, **uneven_host_ms})
     timed(phase_process_srcnn, extra)
     timed(phase_vdsr, extra, launches, max_err, ms, plain_ms, bounds)
+    timed(phase_rcan, extra, launches, max_err, ms, plain_ms, bounds)
 
     replaces = {
         "pre_upscale_fused": ("srcnn_cpp_tpu_torch/csrc/pre_pass.cu",
@@ -511,6 +520,7 @@ def main() -> int:
                               "srcnn_cpp_tpu/ops/pallas_srcnn.py:157"),
         # the JAX package runs SRCNN only
         "vdsr_y_fused": ("srcnn_cpp_tpu_torch/csrc/vdsr_conv.cu", None),
+        "rcan_fused": ("srcnn_cpp_tpu_torch/csrc/rcan.cu", None),
     }
     # library_ms: no single PyTorch call computes any of these functions
     kernels = [{"name": n, "route": "cuda", "source": src, "replaces": rep,
@@ -574,8 +584,9 @@ class Extra:
     ``x`` [4,3,540,960] and its upscaled YCrCb ``up`` [4,3,1080,1920]."""
 
     def __init__(self, gpu, weights, x, up):
-        from srcnn_cpp_tpu_torch.ops import (cuda_merge, cuda_resize,
-                                             cuda_srcnn, cuda_vdsr)
+        from srcnn_cpp_tpu_torch.ops import (cuda_merge, cuda_rcan,
+                                             cuda_resize, cuda_srcnn,
+                                             cuda_vdsr)
 
         self.gpu, self.weights, self.x, self.up = gpu, weights, x, up
         self.wrappers = (cuda_resize.pre_upscale_fused,
@@ -583,10 +594,11 @@ class Extra:
                          cuda_merge.merge_ycrcb_to_bgr_fused,
                          cuda_srcnn.srcnn_merge_fused,
                          cuda_srcnn.srcnn_y_f32_fused,
-                         cuda_vdsr.vdsr_y_fused)
+                         cuda_vdsr.vdsr_y_fused, cuda_rcan.rcan_fused)
         self.plains = (cuda_resize.pre_upscale_plain, cuda_srcnn.srcnn_y_plain,
                        cuda_merge.merge_plain, cuda_srcnn.srcnn_merge_plain,
-                       cuda_srcnn.srcnn_y_f32_plain, cuda_vdsr.vdsr_y_plain)
+                       cuda_srcnn.srcnn_y_f32_plain, cuda_vdsr.vdsr_y_plain,
+                       cuda_rcan.rcan_plain)
         self.rng = np.random.default_rng(SEED + 1)
         self.y4k = None
 
@@ -1753,6 +1765,73 @@ def phase_vdsr(e: Extra, launches: dict, max_err: dict, ms: dict,
         f"{2 * macs * npix / (ms[name] * 1e-3) / 1e12:.1f} TFLOP/s of "
         f"{TF32_FLOPS / 1e12:.0f} (dense TF32), {macs} MACs a pixel "
         f"({e.gpu})")
+
+
+def phase_rcan(e: Extra, launches: dict, max_err: dict, ms: dict,
+               plain_ms: dict, bounds: dict) -> None:
+    """RCAN x2 at the shapes of the benchmark's RCAN cell: a batch of 4
+    frames of 1080x1920 through ``upscale_planar`` at x2."""
+    from srcnn_cpp_tpu_torch.ops.cuda_rcan import (rcan_fused, rcan_plain,
+                                                   rcan_plan)
+    from srcnn_cpp_tpu_torch.pipeline import upscale_planar
+    from srcnn_cpp_tpu_torch.weights import load_rcan_weights
+
+    b, h, w = 4, 1080, 1920
+    oh, ow = 2 * h, 2 * w
+    say(f"phase 26: RCAN rcan_fused vs rcan_plain (TF32 off), "
+        f"upscale_planar on [{b},3,{h},{w}] -> [{b},3,{oh},{ow}]")
+    weights = load_rcan_weights(RCAN_RECIPE, device="cuda")
+    # the benchmark's frames (portbench/frames.py): the limits were read on
+    # them, and uniform noise would clamp a large share of RCAN's output
+    from portbench.frames import make
+
+    x = make(SEED + 26, b, (h, w), "cuda").permute(0, 3, 1, 2).contiguous()
+    out, got = e.drive("upscale_planar with RCAN weights",
+                       lambda: upscale_planar(x, weights, (oh, ow)),
+                       ("rcan_fused",))
+    if got["rcan_fused"] != 1 or got["pre_upscale_fused"] \
+            or got["srcnn_y_fused"] or got["merge_ycrcb_to_bgr_fused"]:
+        raise AssertionError("upscale_planar did not run RCAN once and K2, "
+                             "K1, K3 never")
+    launches["rcan_fused"] = got["rcan_fused"]
+    err, off = 0, 0
+    for i in range(b):
+        d = diff(out[i], rcan_plain(x[i:i + 1], weights)[0])
+        mx, frac = int(d.max()), float((d > 0).float().mean())
+        say(f"  frame {i} of {b} [3,{oh},{ow}]: max {mx} LSB, differing "
+            f"fraction {frac:.3e}")
+        if mx > 1 or frac >= K1_FRAC:
+            raise AssertionError(f"RCAN frame {i}: max {mx}, frac {frac}")
+        err, off = max(err, mx), max(off, frac)
+    max_err["rcan_fused"] = err
+
+    def plain():
+        for i in range(b):
+            rcan_plain(x[i:i + 1], weights)
+
+    name = "rcan_fused"
+    ms[name], plain_ms[name] = ab_ms(
+        lambda: rcan_fused(x, weights, (oh, ow)), plain, 2)
+    npix = b * oh * ow
+    from portbench.reference.rcan import macs_per_pixel
+
+    macs = macs_per_pixel({k: tuple(v.shape)
+                           for k, v in weights.as_dict().items()})
+    # bytes: BGR in, BGR out; operations: the network's MACs at dense TF32
+    bounds[name] = bound(3.0 * b * h * w + 3.0 * npix, 2.0 * macs * npix,
+                         TF32_FLOPS)
+    g, k = weights.groups, weights.blocks
+    kernels = b * (1 + 4 * g * k + g + 1 + 4 + 1)
+    plan = rcan_plan(h, w, torch.cuda.get_device_properties(0)
+                     .multi_processor_count)
+    say(f"  {name}: {ms[name]:.2f} ms, plain {plain_ms[name]:.2f} ms, bound "
+        f"{bounds[name][0]:.2f} ms ({bounds[name][1]}); a frame "
+        f"{ms[name] / b:.2f} ms against {bounds[name][0] / b:.2f}; "
+        f"{2 * macs * npix / (ms[name] * 1e-3) / 1e12:.1f} TFLOP/s of "
+        f"{TF32_FLOPS / 1e12:.0f} (dense TF32), {macs} MACs an output "
+        f"pixel; max {err} LSB, share off {off:.3e} at most a frame; 1 C "
+        f"call, {kernels} kernels a call; workspace "
+        f"{4 * plan['workspace_floats'] / 1e9:.2f} GB ({e.gpu})")
 
 
 if __name__ == "__main__":

@@ -13,7 +13,9 @@ Public surface:
   reference src/test.cpp:345);
 * :func:`load_weights` — the pretrained SRCNN 9-5-5 checkpoint as tensors
   (:class:`SRCNNWeights`); :func:`load_vdsr_weights` — a 20-layer VDSR
-  checkpoint (:class:`VDSRWeights`), which the same entry points run;
+  checkpoint (:class:`VDSRWeights`), :func:`load_rcan_weights` — an RCAN
+  x2 checkpoint or seeded recipe (:class:`RCANWeights`), which the same
+  entry points run;
 * :class:`SRCNN` — the model family as a ``torch.nn.Module`` (:mod:`.models`);
 * :func:`evaluate_image` — the Resize.m evaluation protocol
   (:mod:`.evaluate`, ``python -m srcnn_cpp_tpu_torch.evaluate``);
@@ -35,7 +37,7 @@ def __getattr__(name):
 
         return getattr(pipeline, name)
     if name in ("load_weights", "SRCNNWeights", "load_vdsr_weights",
-                "VDSRWeights"):
+                "VDSRWeights", "load_rcan_weights", "RCANWeights"):
         from . import weights
 
         return getattr(weights, name)

@@ -50,10 +50,17 @@
 // The plan (grid, shared-memory bytes) is computed by
 // ops/cuda_vdsr.py::vdsr_plan and handed to the launcher, which refuses a
 // plan that does not match the constants below.
+//
+// The 64->64 kernel's body is shared with RCAN (rcan.cu): its epilogue is
+// a template parameter (conv3x3.cuh).  VDSR's vdsr_conv3x3_kernel is the
+// EPI_RELU store; RCAN launches rcan_conv3x3_kernel<EPI> through
+// rcan_conv3x3 below, for its ReLU, pooled, skip-adding and pixel-shuffle
+// layers.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "conv3x3.cuh"
 #include "wgmma.cuh"
 
 namespace {
@@ -95,6 +102,9 @@ constexpr int W_EDGE = TAPS * C;            // conv1 / conv20: [9][64] taps
 static_assert(W_STAGE == 9216 && ACT_PLANE == 4224 && STAGE == 17664,
               "stage layout (ops/cuda_vdsr.py::stage_layout)");
 static_assert(SMEM_BYTES == 211968 + 48, "shared memory of the plan");
+static_assert(C == CONV3X3_C && NCONS == POOL_PARTS &&
+              LAYER_FLOATS == CONV3X3_LAYER_FLOATS &&
+              SMEM_BYTES == CONV3X3_SMEM_BYTES, "conv3x3.cuh");
 static_assert(SMEM_BYTES <= 232448, "one block's shared memory on sm_90");
 static_assert((NC * 16) % 128 == 64, "planes 16 banks apart");
 static_assert((W_STAGE * 4) % 16 == 0 && (LAYER_FLOATS * 4) % 16 == 0,
@@ -219,15 +229,17 @@ __device__ __forceinline__ void producer(const float* __restrict__ in,
 
 // --- consumers: one output row of each unit ----------------------------------
 
+template <int EPI>
 __device__ __forceinline__ void consumer(float* __restrict__ out,
                                          const float* __restrict__ bias,
                                          const Units& un, float* smem,
                                          uint64_t* full, uint64_t* empty,
-                                         int c) {
+                                         int c, const EpiArgs& ea) {
   const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
   const int co0 = 16 * warp + g;                 // rows co0, co0 + 8 of D
   const float b0 = __ldg(bias + co0), b1 = __ldg(bias + co0 + 8);
+  float pool0 = 0.f, pool1 = 0.f;                // EPI_POOL: this row's sums
   uint32_t n = 0;                                // stages consumed so far
   for (int u = blockIdx.x; u < un.count; u += gridDim.x) {
     float acc[TN / 8][4];
@@ -266,26 +278,71 @@ __device__ __forceinline__ void consumer(float* __restrict__ out,
     fence_acc(acc);
     bar_arrive(&empty[prev]);
 
-    // ReLU and the store: D row co, column px is out[y][x0 + px][co]
+    // the epilogue and the store: D row co, column px is pixel (y, x0 + px)
     const int y = un.y0(u) + c, x0 = un.x0(u);
     if (y < un.H) {
-      float* row = out + ((size_t)y * un.W + x0) * C;
+      if constexpr (EPI == EPI_RELU) {
+        float* row = out + ((size_t)y * un.W + x0) * C;
 #pragma unroll
-      for (int j = 0; j < TN / 8; ++j) {
+        for (int j = 0; j < TN / 8; ++j) {
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int px = 8 * j + 2 * t + (e & 1);
-          if (x0 + px < un.W)
-            row[(size_t)px * C + co0 + 8 * (e >> 1)] = fmaxf(acc[j][e], 0.f);
+          for (int e = 0; e < 4; ++e) {
+            const int px = 8 * j + 2 * t + (e & 1);
+            if (x0 + px < un.W)
+              row[(size_t)px * C + co0 + 8 * (e >> 1)] =
+                  fmaxf(acc[j][e], 0.f);
+          }
+        }
+      } else {
+        const bool shuffle = EPI == EPI_SHUFFLE;
+        const size_t ow = shuffle ? 2 * (size_t)un.W : un.W;
+        const size_t oy = shuffle ? 2 * (size_t)y + ea.dy : y;
+        float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+        for (int j = 0; j < TN / 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int px = 8 * j + 2 * t + (e & 1);
+            if (x0 + px < un.W) {
+              const size_t ox = shuffle ? 2 * (size_t)(x0 + px) + ea.dx
+                                        : (size_t)(x0 + px);
+              const size_t i = (oy * ow + ox) * C + co0 + 8 * (e >> 1);
+              float v = acc[j][e];
+              if constexpr (EPI == EPI_SKIP)
+                v = __fadd_rn(v, __ldg(ea.skip + i));
+              if constexpr (EPI == EPI_POOL) {
+                if (e >> 1) s1 += v; else s0 += v;
+              }
+              out[i] = v;
+            }
+          }
+        }
+        if constexpr (EPI == EPI_POOL) {
+          // the 4 lanes of a channel row hold its 128 columns
+          s0 += __shfl_xor_sync(0xFFFFFFFFu, s0, 1);
+          s0 += __shfl_xor_sync(0xFFFFFFFFu, s0, 2);
+          s1 += __shfl_xor_sync(0xFFFFFFFFu, s1, 1);
+          s1 += __shfl_xor_sync(0xFFFFFFFFu, s1, 2);
+          pool0 += s0;
+          pool1 += s1;
         }
       }
     }
   }
+  if constexpr (EPI == EPI_POOL) {
+    if (t == 0) {
+      float* p = ea.pool + ((size_t)blockIdx.x * NCONS + c) * C;
+      p[co0] = pool0;
+      p[co0 + 8] = pool1;
+    }
+  }
 }
 
-__global__ void __launch_bounds__(NTHREADS, 1)
-vdsr_conv3x3_kernel(const float* __restrict__ in, float* __restrict__ out,
-                    const float* __restrict__ wl, int H, int W) {
+template <int EPI>
+__device__ __forceinline__ void conv3x3(const float* __restrict__ in,
+                                        float* __restrict__ out,
+                                        const float* __restrict__ wl, int H,
+                                        int W, const EpiArgs& ea) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + BAR_OFF);
@@ -303,7 +360,20 @@ vdsr_conv3x3_kernel(const float* __restrict__ in, float* __restrict__ out,
   if (wg == NCONS)
     producer(in, wl, un, smem, full, empty);
   else
-    consumer(out, wl + W_LAYER, un, smem, full, empty, wg);
+    consumer<EPI>(out, wl + W_LAYER, un, smem, full, empty, wg, ea);
+}
+
+__global__ void __launch_bounds__(NTHREADS, 1)
+vdsr_conv3x3_kernel(const float* __restrict__ in, float* __restrict__ out,
+                    const float* __restrict__ wl, int H, int W) {
+  conv3x3<EPI_RELU>(in, out, wl, H, W, EpiArgs{});
+}
+
+template <int EPI>
+__global__ void __launch_bounds__(NTHREADS, 1)
+rcan_conv3x3_kernel(const float* __restrict__ in, float* __restrict__ out,
+                    const float* __restrict__ wl, int H, int W, EpiArgs ea) {
+  conv3x3<EPI>(in, out, wl, H, W, ea);
 }
 
 // --- conv1 and conv20 on the SIMT units --------------------------------------
@@ -454,3 +524,45 @@ extern "C" int vdsr_y_u8(const uint8_t* y, long long frame_stride,
   }
   return (int)cudaGetLastError();
 }
+
+namespace srcnn_hopper {
+
+int rcan_conv3x3_prepare() {
+  const void* kernels[] = {
+      (const void*)rcan_conv3x3_kernel<EPI_RELU>,
+      (const void*)rcan_conv3x3_kernel<EPI_POOL>,
+      (const void*)rcan_conv3x3_kernel<EPI_SKIP>,
+      (const void*)rcan_conv3x3_kernel<EPI_SHUFFLE>};
+  for (const void* k : kernels) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
+}
+
+cudaError_t rcan_conv3x3(Epilogue epi, const float* in, float* out,
+                         const float* wl, int H, int W, EpiArgs ea, int grid,
+                         cudaStream_t s) {
+  switch (epi) {
+    case EPI_RELU:
+      rcan_conv3x3_kernel<EPI_RELU><<<grid, NTHREADS, SMEM_BYTES, s>>>(
+          in, out, wl, H, W, ea);
+      break;
+    case EPI_POOL:
+      rcan_conv3x3_kernel<EPI_POOL><<<grid, NTHREADS, SMEM_BYTES, s>>>(
+          in, out, wl, H, W, ea);
+      break;
+    case EPI_SKIP:
+      rcan_conv3x3_kernel<EPI_SKIP><<<grid, NTHREADS, SMEM_BYTES, s>>>(
+          in, out, wl, H, W, ea);
+      break;
+    case EPI_SHUFFLE:
+      rcan_conv3x3_kernel<EPI_SHUFFLE><<<grid, NTHREADS, SMEM_BYTES, s>>>(
+          in, out, wl, H, W, ea);
+      break;
+  }
+  return cudaGetLastError();
+}
+
+}  // namespace srcnn_hopper

@@ -7,14 +7,17 @@ Loads the other checkout's ``srcnn_cpp_tpu_torch`` under another module
 name beside this one, builds both kernel libraries, and on the x2 main
 geometry (4 seeded 540x960 BGR frames -> 4 x 1080x1920) times, with CUDA
 events, the conv K1 (``srcnn_y_fused``), the pre-pass K2
-(``pre_upscale_fused``), the post-pass K3 (``merge_ycrcb_to_bgr_fused``)
-and the device-resident pipeline (``upscale_planar``) of both, and K3 on
-4 seeded [1079,1921] planes (H*W % 16 != 0), in turns (parent, change,
+(``pre_upscale_fused``), the post-pass K3 (``merge_ycrcb_to_bgr_fused``),
+the VDSR chain (``vdsr_y_fused``, on the same 4 upscaled Y planes with
+``portbench/configs/vdsr20_seeded.npz``: the 64->64 conv that RCAN
+shares) and the device-resident pipeline (``upscale_planar``) of both,
+and K3 on 4 seeded [1079,1921] planes (H*W % 16 != 0), in turns (parent, change,
 change, parent) for ``--rounds`` rounds; K2 and both K3 cases also from
 CUDA graph replays; the host-array entry (``upscale_bgr_batch`` on the
 same frames as a host array, host clock per call).  Before timing it
-checks that both give the same K2 and K3 outputs, K1 outputs within 1 LSB
-of each other and host-array outputs within 2 LSB, and it profiles
+checks that both give the same K2 and K3 outputs, K1 and VDSR outputs
+within 1 LSB of each other (it prints their largest difference) and
+host-array outputs within 2 LSB, and it profiles
 20 calls of each pipeline and of the odd-plane K3 (``torch.profiler``:
 device time by kernel, busy share of the span), and prints K2's static
 SASS instruction counts of both builds (``cuobjdump``, where it runs).
@@ -41,6 +44,8 @@ import numpy as np
 import torch
 
 _ALIAS = "srcnn_ab_parent"
+VDSR_NPZ = Path(__file__).resolve().parent.parent / \
+    "portbench/configs/vdsr20_seeded.npz"
 
 
 def load_checkout(root: Path, alias: str = _ALIAS):
@@ -211,7 +216,7 @@ def main(argv=None) -> int:
     for tag, name in (("parent", _ALIAS), ("change", "srcnn_cpp_tpu_torch")):
         m = {k: importlib.import_module(f"{name}.{k}") for k in
              ("runtime", "pipeline", "weights", "ops.cuda_srcnn",
-              "ops.cuda_resize", "ops.cuda_merge")}
+              "ops.cuda_resize", "ops.cuda_merge", "ops.cuda_vdsr")}
         path, secs, _ = m["runtime"].build()
         m["runtime"].library()
         print(f"{tag}: built {path} in {secs:.1f} s; K2's static SASS "
@@ -243,8 +248,11 @@ def main(argv=None) -> int:
         ups[tag] = pre(x, hw)
         up = ups[tag]
         y_sr = conv(up[:, 0], w)
+        vdsr = m["ops.cuda_vdsr"].vdsr_y_fused
+        wv = m["weights"].load_vdsr_weights(VDSR_NPZ, device="cuda")
         fns[tag] = {
             "srcnn_y_fused": (lambda c=conv, u=up, w=w: c(u[:, 0], w)),
+            "vdsr_y_fused": (lambda f=vdsr, u=up, w=wv: f(u[:, 0], w)),
             "pre_upscale_fused": (lambda p=pre: p(x, hw)),
             "merge_ycrcb_to_bgr_fused": (lambda f=merge, y=y_sr, u=up:
                                          f(y, u)),
@@ -262,12 +270,12 @@ def main(argv=None) -> int:
     # K2 and K3 take less device time than their wrappers' host time: they
     # are also timed from CUDA graph replays, in turns like the rest
     graphed = ("pre_upscale_fused", "merge_ycrcb_to_bgr_fused", k3_odd)
-    d = (fns["parent"]["srcnn_y_fused"]().int()
-         - fns["change"]["srcnn_y_fused"]().int()).abs()
-    print(f"K1 parent vs change: max {int(d.max())} LSB, differing "
-          f"{float((d > 0).float().mean()):.2e}", flush=True)
-    if int(d.max()) > 1:
-        raise AssertionError("K1 outputs differ by more than 1 LSB")
+    for name, what in (("srcnn_y_fused", "K1"), ("vdsr_y_fused", "VDSR")):
+        d = (fns["parent"][name]().int() - fns["change"][name]().int()).abs()
+        print(f"{what} parent vs change: max {int(d.max())} LSB, differing "
+              f"{float((d > 0).float().mean()):.2e}", flush=True)
+        if int(d.max()) > 1:
+            raise AssertionError(f"{what} outputs differ by more than 1 LSB")
     d = np.abs(fns["parent"][host]().astype(np.int32)
                - fns["change"][host]().astype(np.int32))
     print(f"{host} parent vs change: max {int(d.max())} LSB, differing "

@@ -142,12 +142,18 @@ def pack_vdsr(weights: VDSRWeights) -> tuple:
                    weights)
 
 
+def conv_grid(h: int, w: int, num_sms: int) -> tuple[int, int]:
+    """``(units, grid)`` of the 64->64 kernel on an ``h x w`` frame, as
+    :func:`vdsr_plan` describes them; RCAN's plan takes the same."""
+    units = -(-h // UNIT_ROWS) * -(-w // STRIP)
+    return units, min(num_sms, units)
+
+
 @functools.lru_cache(maxsize=256)
 def _plan(h: int, w: int, num_sms: int) -> tuple[int, int]:
     """``(units, grid)`` of one frame."""
     with span("srcnn.build.vdsr_plan"):
-        units = -(-h // UNIT_ROWS) * -(-w // STRIP)
-        return units, min(num_sms, units)
+        return conv_grid(h, w, num_sms)
 
 
 def vdsr_plan(h: int, w: int, num_sms: int) -> dict:

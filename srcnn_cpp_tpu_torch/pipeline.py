@@ -10,7 +10,10 @@ as three kernels: K2 the pre-pass (:mod:`.ops.cuda_resize`), the network
 on Y and K3 the post-pass (:mod:`.ops.cuda_merge`).  The network follows
 from the weights' type (:func:`network_y`): SRCNN's K1 conv stack
 (:mod:`.ops.cuda_srcnn`) for ``SRCNNWeights``, the VDSR chain
-(:mod:`.ops.cuda_vdsr`) for ``VDSRWeights``.
+(:mod:`.ops.cuda_vdsr`) for ``VDSRWeights``.  ``RCANWeights`` take the
+pipeline's other shape (:func:`upscale_planar`): RCAN x2
+(:mod:`.ops.cuda_rcan`) upscales the BGR frame itself, with no YCrCb, no
+bicubic and no merge.
 On a CUDA device each wrapper launches its kernel; on the CPU each runs its
 plain PyTorch version.  There is one path per device and no fallback.
 
@@ -37,12 +40,13 @@ import numpy as np
 import torch
 
 from .ops.cuda_merge import merge_ycrcb_to_bgr_fused
+from .ops.cuda_rcan import rcan_fused
 from .ops.cuda_resize import pre_upscale_fused
 from .ops.cuda_srcnn import srcnn_y_fused
 from .ops.cuda_vdsr import vdsr_y_fused
 from .ops.resize import resize_bicubic_u8, scaled_size
 from .utils.profiling import span
-from .weights import SRCNNWeights, VDSRWeights, weights_on
+from .weights import RCANWeights, SRCNNWeights, VDSRWeights, weights_on
 
 
 def u8_tensor(frames) -> torch.Tensor:
@@ -59,7 +63,8 @@ def u8_tensor(frames) -> torch.Tensor:
 
 def network_y(y_u8: torch.Tensor, weights) -> torch.Tensor:
     """The weights' network on uint8 Y plane(s), uint8 out: VDSR's chain
-    for ``VDSRWeights``, SRCNN's K1 for any other weights."""
+    for ``VDSRWeights``, SRCNN's K1 for any other weights (which refuses
+    any that are not SRCNN's, such as ``RCANWeights``, with TypeError)."""
     if isinstance(weights, VDSRWeights):
         return vdsr_y_fused(y_u8, weights)
     return srcnn_y_fused(y_u8, weights)
@@ -68,9 +73,14 @@ def network_y(y_u8: torch.Tensor, weights) -> torch.Tensor:
 def upscale_planar(bgr_p: torch.Tensor, weights,
                    out_hw: tuple[int, int]) -> torch.Tensor:
     """Planar BGR u8 ``[B, 3, H, W]`` -> planar BGR u8 ``[B, 3, oh, ow]``,
-    on the device of ``bgr_p`` (``weights``, ``SRCNNWeights`` or
-    ``VDSRWeights``, must live there too)."""
+    on the device of ``bgr_p`` (``weights`` must live there too).  The
+    weights' type picks the shape: K2 -> the network on Y -> K3 for
+    ``SRCNNWeights`` and ``VDSRWeights`` (:func:`network_y`); RCAN x2 on
+    the RGB frame for ``RCANWeights``, which upscales by 2 only (another
+    ``out_hw`` raises ValueError)."""
     with span("srcnn.pipeline"):
+        if isinstance(weights, RCANWeights):
+            return rcan_fused(bgr_p, weights, out_hw)
         up = pre_upscale_fused(bgr_p, out_hw)        # YCrCb [B, 3, oh, ow]
         y_sr = network_y(up[:, 0], weights)          # [B, oh, ow]
         return merge_ycrcb_to_bgr_fused(y_sr, up)
@@ -242,7 +252,8 @@ upscale_host.chunks = 0   # chunks those calls sent
 
 
 def upscale_bgr_batch(bgr_u8, scale: float,
-                      weights: SRCNNWeights | VDSRWeights | None = None,
+                      weights: SRCNNWeights | VDSRWeights | RCANWeights
+                      | None = None,
                       device="cuda"):
     """Super-resolve a batch ``[B, H, W, 3]`` of BGR uint8 frames on
     ``device`` into ``[B, oh, ow, 3]``.

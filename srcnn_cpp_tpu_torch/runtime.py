@@ -2,8 +2,9 @@
 
 The kernels (``csrc/pre_pass.cu``; ``csrc/srcnn_conv.cu``, whose template
 gives the conv, conv+merge and f32-output conv; ``csrc/merge.cu``;
-``csrc/vdsr_conv.cu``, the VDSR chain; the shared headers
-``csrc/color.cuh`` and ``csrc/wgmma.cuh``) have a plain C interface.  Each
+``csrc/vdsr_conv.cu``, the VDSR chain and the 64->64 conv it shares;
+``csrc/rcan.cu``, RCAN; the shared headers ``csrc/color.cuh``,
+``csrc/wgmma.cuh`` and ``csrc/conv3x3.cuh``) have a plain C interface.  Each
 ``.cu`` source is compiled for ``sm_90a`` (Hopper) by its own ``nvcc``, all
 started together,
 and the objects are linked into one shared library, loaded with
@@ -46,6 +47,8 @@ _SIGNATURES = {
     "pre_pass_resident_blocks": (_I, _P),
     "merge_ycrcb_bgr_u8": (_P, _P, _P, *(_I,) * 6, _LL, _P),
     "vdsr_y_u8": (_P, _LL, *(_P,) * 6, *(_I,) * 5, _P),
+    "rcan_x2_u8": (_P, _LL, *(_P,) * 6, *(_I,) * 7, _P),
+    "rcan_conv3x3_f32": (_I, *(_P,) * 5, *(_I,) * 6, _P),
 }
 
 

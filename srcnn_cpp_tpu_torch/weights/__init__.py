@@ -1,11 +1,12 @@
 """Network weights as torch tensors: SRCNN's loading (:mod:`.loader`) and
 checkpoints (:mod:`.checkpoint`), VDSR's container and loader
-(:mod:`.vdsr`)."""
+(:mod:`.vdsr`), RCAN's (:mod:`.rcan`)."""
 
 from .loader import (CANONICAL, SRCNNWeights, from_jax_params, load_weights,
                      srcnn_only, weights_npz, weights_on)
+from .rcan import RCANWeights, load_rcan_weights
 from .vdsr import VDSRWeights, load_vdsr_weights
 
-__all__ = ["CANONICAL", "SRCNNWeights", "VDSRWeights", "from_jax_params",
-           "load_vdsr_weights", "load_weights", "srcnn_only", "weights_npz",
-           "weights_on"]
+__all__ = ["CANONICAL", "RCANWeights", "SRCNNWeights", "VDSRWeights",
+           "from_jax_params", "load_rcan_weights", "load_vdsr_weights",
+           "load_weights", "srcnn_only", "weights_npz", "weights_on"]

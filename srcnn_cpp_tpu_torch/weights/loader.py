@@ -140,9 +140,14 @@ def srcnn_only(weights, where: str) -> None:
     if weights is None or all(hasattr(weights, k) for k in _KEYS):
         return
     name, halo = type(weights).__name__, getattr(weights, "halo", None)
-    got = (f"{name} needs a {halo}-pixel halo ({2 * halo + 1}x{2 * halo + 1}"
-           f" receptive field), which it lacks" if halo is not None
-           else f"got {name}")
+    if halo is None:
+        got = f"got {name}"
+    elif halo == float("inf"):
+        got = (f"{name} needs the whole frame as its halo (its receptive "
+               f"field), which it lacks")
+    else:
+        got = (f"{name} needs a {halo}-pixel halo ({2 * halo + 1}x"
+               f"{2 * halo + 1} receptive field), which it lacks")
     raise TypeError(f"{where} takes SRCNN weights only: its halo is SRCNN's "
                     f"{HALO} pixels; {got}")
 
@@ -156,8 +161,9 @@ def _canonical(device) -> torch.device:
 
 
 def weights_on(weights, device):
-    """``weights``, an :class:`SRCNNWeights` or a ``VDSRWeights`` (the
-    pretrained SRCNN checkpoint when None), on ``device``.
+    """``weights``, an :class:`SRCNNWeights`, a ``VDSRWeights`` or an
+    ``RCANWeights`` (the pretrained SRCNN checkpoint when None), on
+    ``device``.
 
     The checkpoint is loaded once per process and device.  Weights that
     live on ``device`` (``cuda`` and ``cuda:<current>`` are one device)

@@ -154,6 +154,26 @@ def test_vdsr_weights_run_the_chain_inside_the_pipeline(tmp_path):
     assert _inside(by_name["srcnn.pipeline"], by_name["srcnn.entry"])
 
 
+def test_rcan_weights_run_the_network_inside_the_pipeline(tmp_path):
+    # RCAN takes the pipeline's other shape: no K2, no K3, its network
+    # enqueued inside srcnn.pipeline; a warm call writes no build span
+    from srcnn_cpp_tpu_torch.ops import cuda_rcan
+    from srcnn_cpp_tpu_torch.pipeline import upscale_bgr_batch
+    from srcnn_cpp_tpu_torch.weights import load_rcan_weights
+
+    w = load_rcan_weights(REPO / "portbench/configs/rcan_x2_seeded.jsonl")
+    x = _frames(1, 4, 6, 5)
+    cuda_rcan.pack_rcan(w)
+    upscale_bgr_batch(x, 2.0, w, "cpu")
+    spans = _spans(_traced(lambda: upscale_bgr_batch(x, 2.0, w, "cpu"),
+                           tmp_path))
+    by_name = {e["name"]: e for e in spans}
+    assert _inside(by_name["srcnn.rcan"], by_name["srcnn.pipeline"])
+    assert _inside(by_name["srcnn.pipeline"], by_name["srcnn.entry"])
+    assert not [e for e in spans if e["name"].startswith("srcnn.build.")]
+    assert "srcnn.build.cubic_tables" not in by_name
+
+
 def _k2_plan():
     from srcnn_cpp_tpu_torch.ops import cuda_resize
 
@@ -203,9 +223,24 @@ def _vdsr_weights():
     return None, lambda: pack_vdsr(w)
 
 
+def _rcan_plan():
+    from srcnn_cpp_tpu_torch.ops import cuda_rcan
+
+    return cuda_rcan._plan, lambda: cuda_rcan._plan(24, 40, 132)
+
+
+def _rcan_weights():
+    from srcnn_cpp_tpu_torch.ops.cuda_rcan import pack_rcan
+    from srcnn_cpp_tpu_torch.weights import load_rcan_weights
+
+    w = load_rcan_weights(REPO / "portbench/configs/rcan_x2_seeded.jsonl")
+    return None, lambda: pack_rcan(w)
+
+
 BUILDERS = {"k2_plan": _k2_plan, "k1_plan": _k1_plan, "k3_args": _k3_args,
             "cubic_tables": _cubic_tables, "weights": _weights,
-            "vdsr_plan": _vdsr_plan, "vdsr_weights": _vdsr_weights}
+            "vdsr_plan": _vdsr_plan, "vdsr_weights": _vdsr_weights,
+            "rcan_plan": _rcan_plan, "rcan_weights": _rcan_weights}
 
 
 @pytest.mark.parametrize("what", sorted(BUILDERS))
