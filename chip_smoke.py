@@ -87,8 +87,10 @@ read just after:
   1080x1920 -> 2160x3840 with the seeded weights of
   ``portbench/configs/rcan_x2_seeded.jsonl``: ``upscale_planar`` launches it
   once and K2, K1, K3 never; each frame within 1 LSB of the fp32
-  ``F.conv2d`` path (TF32 off) on under 0.5 % of bytes; the share off, ms
-  a frame and the kernels a call, beside the plain path and its bound.
+  ``F.conv2d`` path (TF32 off) on under 0.5 % of bytes; a trace of one
+  call holds 417 RCAN kernels a frame and none named ``rcan_ca_*``
+  (channel attention runs in the convs' loaders); the share off, ms a
+  frame and the kernels a call, beside the plain path and its bound.
 
 Each phase from 7 on prints its wall time.
 
@@ -1767,11 +1769,27 @@ def phase_vdsr(e: Extra, launches: dict, max_err: dict, ms: dict,
         f"({e.gpu})")
 
 
+def rcan_kernels(fn) -> list[str]:
+    """The names of the kernels named ``rcan_*`` in a
+    ``utils.profiling.trace`` of ``fn()``."""
+    import tempfile
+
+    from srcnn_cpp_tpu_torch.utils.profiling import trace
+
+    with tempfile.TemporaryDirectory() as tmp:
+        with trace(tmp) as logdir:
+            fn()
+        events = json.loads((Path(logdir) / "trace.json").read_text())
+    return [ev["name"] for ev in events["traceEvents"]
+            if ev.get("cat") == "kernel" and "rcan_" in ev.get("name", "")]
+
+
 def phase_rcan(e: Extra, launches: dict, max_err: dict, ms: dict,
                plain_ms: dict, bounds: dict) -> None:
     """RCAN x2 at the shapes of the benchmark's RCAN cell: a batch of 4
     frames of 1080x1920 through ``upscale_planar`` at x2."""
-    from srcnn_cpp_tpu_torch.ops.cuda_rcan import (rcan_fused, rcan_plain,
+    from srcnn_cpp_tpu_torch.ops.cuda_rcan import (launch_schedule,
+                                                   rcan_fused, rcan_plain,
                                                    rcan_plan)
     from srcnn_cpp_tpu_torch.pipeline import upscale_planar
     from srcnn_cpp_tpu_torch.weights import load_rcan_weights
@@ -1804,6 +1822,15 @@ def phase_rcan(e: Extra, launches: dict, max_err: dict, ms: dict,
             raise AssertionError(f"RCAN frame {i}: max {mx}, frac {frac}")
         err, off = max(err, mx), max(off, frac)
     max_err["rcan_fused"] = err
+    g, k = weights.groups, weights.blocks
+    kernels = b * len(launch_schedule(g, k))
+    traced = rcan_kernels(lambda: rcan_fused(x, weights, (oh, ow)))
+    ca = sorted({n for n in traced if "rcan_ca_" in n})
+    say(f"  trace of one call: {len(traced)} RCAN kernels ({kernels} "
+        f"planned, {kernels // b} a frame), CA kernels {ca or 'none'}")
+    if ca or len(traced) != kernels:
+        raise AssertionError(f"RCAN ran {len(traced)} kernels, {ca} among "
+                             f"them; {kernels} planned and no rcan_ca_*")
 
     def plain():
         for i in range(b):
@@ -1820,8 +1847,6 @@ def phase_rcan(e: Extra, launches: dict, max_err: dict, ms: dict,
     # bytes: BGR in, BGR out; operations: the network's MACs at dense TF32
     bounds[name] = bound(3.0 * b * h * w + 3.0 * npix, 2.0 * macs * npix,
                          TF32_FLOPS)
-    g, k = weights.groups, weights.blocks
-    kernels = b * (1 + 4 * g * k + g + 1 + 4 + 1)
     plan = rcan_plan(h, w, torch.cuda.get_device_properties(0)
                      .multi_processor_count)
     say(f"  {name}: {ms[name]:.2f} ms, plain {plain_ms[name]:.2f} ms, bound "

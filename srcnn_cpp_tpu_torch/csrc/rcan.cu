@@ -13,32 +13,42 @@
 // upsampled map [2H][2W][64], 2.12 GB):
 //   rcan_head_kernel        BGR u8 planes -> RGB - 255 mean -> conv 3->64
 //                           (SIMT, fp32 FMA);
-//   rcan_conv3x3_kernel<E>  every 64->64 conv and the upsampler, on tensor
-//                           cores: vdsr_conv.cu's kernel with RCAN's
-//                           epilogues (conv3x3.cuh): ReLU (an RCAB's first
-//                           conv), the pool's partial sums (its second),
-//                           the skip add (each group's last conv, the body
-//                           conv), the pixel-shuffle store (the upsampler,
-//                           as four 64-channel output groups);
-//   rcan_ca_finish_kernel   the partial sums -> z, the 64->4->64 MLP,
-//                           sigmoid -> s (one block of 64 threads);
-//   rcan_ca_apply_kernel    x <- x + s * t;
+//   rcan_conv3x3_kernel<E, L>  every 64->64 conv and the upsampler, on
+//                           tensor cores: vdsr_conv.cu's kernel with RCAN's
+//                           epilogues and loaders (conv3x3.cuh): ReLU (an
+//                           RCAB's first conv), the pool's partial sums (its
+//                           second), the skip add (each group's last conv,
+//                           the body conv), the pixel-shuffle store (the
+//                           upsampler, as four 64-channel output groups);
+//                           channel attention (CA) in the loader of the
+//                           conv that reads an RCAB's result: s from the
+//                           pool's partial sums (the 64->4->64 MLP,
+//                           sigmoid), then x = x_prev + s * t as it stages
+//                           the input, x stored for the next RCAB;
 //   rcan_tail_kernel        conv 64->3 at the output size, + 255 mean,
 //                           clamp, round, planar BGR u8 (SIMT).
+// 417 kernels a frame at the published shapes (10 groups of 20 RCABs).
 //
 // What bounds it on the H100: the 411 64->64 layers (36,864 MACs and 512
 // bytes a pixel each, near the card's ridge; 3xTF32 makes the tensor cores
-// the bound) and CA's apply, which reads t and x and writes x, 768 bytes a
-// pixel and RCAB, bound by HBM.  The pool is 200 global reductions a frame
-// between convs that cannot start before them: the conv's epilogue sums
-// its own outputs (each consumer warpgroup its rows, in a fixed order, no
-// atomics), so the finish reads grid x 2 x 64 floats, not the map.
+// the bound).  CA's apply, a pass of its own, reads t and x and writes x,
+// 768 bytes a pixel and RCAB, bound by HBM: 0.53 ms an RCAB at 1080p, 16.6
+// % of the frame's device time (one H100 at 700 W).  Folded into the next
+// conv's loader, with t and x grouped, it adds 0.19 ms to that conv's
+// 1.33 (the same card).  The pool is 200 global
+// reductions a frame between convs that cannot start before them: the
+// conv's epilogue sums its own outputs (each consumer warpgroup its rows,
+// in a fixed order, no atomics), so CA's finish reads grid x 2 x 64
+// floats, not the map.
 //
 // Buffers (one call's workspace, ops/cuda_rcan.py::rcan_plan): six input-
 // size maps (the head's output, kept for the long skip; two group maps used
 // in turn; x, the first conv's output a, the second's t), the upsampled
-// map, the pool's partial sums and s.  A skip is never the map its conv
-// writes.
+// map and the pool's partial sums.  t and an RCAB's x are kept grouped by
+// 8 channels ([8][H][W][8], conv3x3.cuh), the others NHWC.  A skip is
+// never the map its conv writes, and no conv writes a map that it reads:
+// an RCAB's x goes to x or to the map its group's last conv writes, in
+// turn, so that the last RCAB's goes to x.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -50,19 +60,11 @@ namespace {
 using namespace srcnn_hopper;
 
 constexpr int C = CONV3X3_C;
-constexpr int HIDDEN = 4;                     // C / reduction 16
-// one RCAB's CA weights (floats): W1 [4][64], b1 [4], W2 [64][4], b2 [64]
-constexpr int CA_W1 = 0, CA_B1 = HIDDEN * C, CA_W2 = CA_B1 + HIDDEN,
-              CA_B2 = CA_W2 + C * HIDDEN, CA_FLOATS = CA_B2 + C;
 constexpr int HEAD_TAPS = 3 * 9;              // [RGB][ky][kx]
 constexpr int EDGE_THREADS = 256;
 constexpr int PAIRS = 8;                      // pixel pairs a warp walks
 constexpr int EDGE_PX = EDGE_THREADS / 32 * 2 * PAIRS;
-constexpr int APPLY_THREADS = 256;
-constexpr int APPLY_BLOCKS_PER_SM = 8;       // of the conv's grid
 constexpr int MAPS = 6;                       // input-size maps
-static_assert(CA_FLOATS == 580, "ops/cuda_rcan.py::CA_FLOATS");
-static_assert(APPLY_THREADS % 16 == 0, "a thread keeps one channel quad");
 
 // 255 * MeanShift's RGB mean, in float32 as the authors' MeanShift holds it
 __device__ __forceinline__ float rgb_mean(int c) {
@@ -169,54 +171,6 @@ rcan_tail_kernel(const float* __restrict__ act, const float* __restrict__ w,
   }
 }
 
-// CA's finish: z = (the partial sums of `parts` pool slots) / npx, in a
-// fixed order; s = sigmoid(W2 relu(W1 z + b1) + b2).  One block of 64.
-__global__ void __launch_bounds__(C)
-rcan_ca_finish_kernel(const float* __restrict__ pool, int parts, float npx,
-                      const float* __restrict__ w, float* __restrict__ s) {
-  __shared__ float z[C], hid[HIDDEN];
-  const int c = threadIdx.x;
-  float sum = 0.f;
-#pragma unroll 8
-  for (int i = 0; i < parts; ++i) sum += pool[(size_t)i * C + c];
-  z[c] = __fdiv_rn(sum, npx);
-  __syncthreads();
-  if (c < HIDDEN) {
-    float h = __ldg(w + CA_B1 + c);
-    for (int k = 0; k < C; ++k) h = fmaf(__ldg(w + CA_W1 + c * C + k), z[k], h);
-    hid[c] = fmaxf(h, 0.f);
-  }
-  __syncthreads();
-  float v = __ldg(w + CA_B2 + c);
-#pragma unroll
-  for (int j = 0; j < HIDDEN; ++j)
-    v = fmaf(__ldg(w + CA_W2 + c * HIDDEN + j), hid[j], v);
-  s[c] = __fdiv_rn(1.f, __fadd_rn(1.f, expf(-v)));
-}
-
-// CA's apply: xout = xin + s * t over n4 float4s of an NHWC map (xout may
-// be xin: each element is read, then written, by one thread).  The grid's
-// stride is a multiple of 16 float4s, so a thread's float4s share one
-// quad of channels and one quad of s.
-__global__ void __launch_bounds__(APPLY_THREADS)
-rcan_ca_apply_kernel(const float* xin, const float* __restrict__ t,
-                     const float* __restrict__ s, float* xout,
-                     long long n4) {
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const float4 sv = __ldg(reinterpret_cast<const float4*>(s) + (i & 15));
-  for (; i < n4; i += stride) {
-    const float4 x = reinterpret_cast<const float4*>(xin)[i];
-    const float4 tv = __ldg(reinterpret_cast<const float4*>(t) + i);
-    float4 r;
-    r.x = __fadd_rn(x.x, __fmul_rn(tv.x, sv.x));
-    r.y = __fadd_rn(x.y, __fmul_rn(tv.y, sv.y));
-    r.z = __fadd_rn(x.z, __fmul_rn(tv.z, sv.z));
-    r.w = __fadd_rn(x.w, __fmul_rn(tv.w, sv.w));
-    reinterpret_cast<float4*>(xout)[i] = r;
-  }
-}
-
 int edge_blocks(long long px) { return (int)((px + EDGE_PX - 1) / EDGE_PX); }
 
 }  // namespace
@@ -228,16 +182,17 @@ int edge_blocks(long long px) { return (int)((px + EDGE_PX - 1) / EDGE_PX); }
 // group, each RCAB's two convs, then the group's last conv; the body conv;
 // the upsampler's four output groups (dy, dx) = (q / 2, q % 2); w_ca: each
 // RCAB's CA_FLOATS; w_tail: TAIL_FLOATS.  ws: the workspace (MAPS maps of
-// H x W x 64, one of 2H x 2W x 64, grid * POOL_PARTS * 64 pool floats, 64
-// of s; 16-byte aligned).  (grid, smem_bytes): ops/cuda_vdsr.py::vdsr_plan.
+// H x W x 64, one of 2H x 2W x 64, grid * POOL_PARTS * 64 pool floats;
+// 16-byte aligned).  (grid, smem_bytes): ops/cuda_vdsr.py::vdsr_plan.
 extern "C" int rcan_x2_u8(const uint8_t* bgr, long long frame_stride,
                           const float* w_head, const float* w_mid,
                           const float* w_ca, const float* w_tail, float* ws,
                           uint8_t* out, int B, int H, int W, int groups,
                           int blocks, int grid, int smem_bytes,
                           void* stream) {
-  if (smem_bytes != CONV3X3_SMEM_BYTES || grid <= 0 || groups <= 0 ||
-      blocks <= 0 || (reinterpret_cast<uintptr_t>(w_mid) & 15) != 0 ||
+  if (smem_bytes != CONV3X3_SMEM_BYTES || grid <= 0 ||
+      grid * POOL_PARTS > CA_PARTS_MAX || groups <= 0 || blocks <= 0 ||
+      (reinterpret_cast<uintptr_t>(w_mid) & 15) != 0 ||
       (reinterpret_cast<uintptr_t>(ws) & 15) != 0 ||
       4LL * H * W >= (1LL << 31))
     return (int)cudaErrorInvalidValue;   // a plan for another kernel
@@ -254,10 +209,11 @@ extern "C" int rcan_x2_u8(const uint8_t* bgr, long long frame_stride,
   float* tm = ws + 5 * map;
   float* hr = ws + MAPS * map;         // 2H x 2W x 64
   float* pool = hr + 4 * map;
-  float* sv = pool + (size_t)grid * POOL_PARTS * C;
-  const int apply_grid = grid * APPLY_BLOCKS_PER_SM;    // grid: <= 1 an SM
+  const int parts = grid * POOL_PARTS;
   const size_t layer = CONV3X3_LAYER_FLOATS;
-  EpiArgs none{nullptr, nullptr, 0, 0};
+  const EpiArgs none{nullptr, nullptr, 0, 0};
+  const EpiArgs pooled{nullptr, pool, 0, 0};
+  const LoadArgs plain{};
   for (int b = 0; b < B; ++b) {
     rcan_head_kernel<<<edge_blocks(px), EDGE_THREADS, 0, s>>>(
         bgr + b * frame_stride, w_head, hm, H, W);
@@ -265,35 +221,49 @@ extern "C" int rcan_x2_u8(const uint8_t* bgr, long long frame_stride,
     const float* wca = w_ca;
     const float* gin = hm;
     for (int g = 0; g < groups; ++g) {
-      const float* xin = gin;
+      float* gout = gm[g % 2];
+      // RCAB k's result x_k = x_{k-1} + s_k t_k (x_{-1} = gin) is formed by
+      // the loader of the conv after it, which stores x_k for k < blocks - 1
+      // (grouped by 8 channels, conv3x3.cuh) in xm where blocks - 2 - k is
+      // even, else in gout
+      const float* xprev = gin;
       for (int k = 0; k < blocks; ++k) {
-        e = rcan_conv3x3(EPI_RELU, xin, am, wl, H, W, none, grid, s);
+        if (k == 0) {
+          e = rcan_conv3x3(EPI_RELU, LOAD_PLAIN, gin, am, wl, H, W, none,
+                           plain, grid, s);
+        } else {
+          float* x = (blocks - 1 - k) % 2 == 0 ? xm : gout;
+          const LoadArgs apply{tm, pool, wca - CA_FLOATS, x, nullptr, parts,
+                               (float)px, k > 1};
+          e = rcan_conv3x3(EPI_RELU, LOAD_APPLY, xprev, am, wl, H, W, none,
+                           apply, grid, s);
+          xprev = x;
+        }
         if (e != cudaSuccess) return (int)e;
-        EpiArgs pooled{nullptr, pool, 0, 0};
-        e = rcan_conv3x3(EPI_POOL, am, tm, wl + layer, H, W, pooled, grid, s);
+        e = rcan_conv3x3(EPI_POOL, LOAD_PLAIN, am, tm, wl + layer, H, W,
+                         pooled, plain, grid, s);
         if (e != cudaSuccess) return (int)e;
-        rcan_ca_finish_kernel<<<1, C, 0, s>>>(pool, grid * POOL_PARTS,
-                                              (float)px, wca, sv);
-        rcan_ca_apply_kernel<<<apply_grid, APPLY_THREADS, 0, s>>>(
-            xin, tm, sv, xm, (long long)(map / 4));
-        xin = xm;
         wl += 2 * layer;
         wca += CA_FLOATS;
       }
-      float* gout = gm[g % 2];
-      EpiArgs skip{gin, nullptr, 0, 0};
-      e = rcan_conv3x3(EPI_SKIP, xm, gout, wl, H, W, skip, grid, s);
+      const EpiArgs skip{gin, nullptr, 0, 0};
+      const LoadArgs last{tm, pool, wca - CA_FLOATS, nullptr, nullptr, parts,
+                          (float)px, blocks > 1};
+      e = rcan_conv3x3(EPI_SKIP, LOAD_APPLY_LAST, xprev, gout, wl, H, W,
+                       skip, last, grid, s);
       if (e != cudaSuccess) return (int)e;
       wl += layer;
       gin = gout;
     }
-    EpiArgs long_skip{hm, nullptr, 0, 0};
-    e = rcan_conv3x3(EPI_SKIP, gin, xm, wl, H, W, long_skip, grid, s);
+    const EpiArgs long_skip{hm, nullptr, 0, 0};
+    e = rcan_conv3x3(EPI_SKIP, LOAD_PLAIN, gin, xm, wl, H, W, long_skip,
+                     plain, grid, s);
     if (e != cudaSuccess) return (int)e;
     wl += layer;
     for (int q = 0; q < 4; ++q) {
       EpiArgs shuffle{nullptr, nullptr, q / 2, q % 2};
-      e = rcan_conv3x3(EPI_SHUFFLE, xm, hr, wl, H, W, shuffle, grid, s);
+      e = rcan_conv3x3(EPI_SHUFFLE, LOAD_PLAIN, xm, hr, wl, H, W, shuffle,
+                       plain, grid, s);
       if (e != cudaSuccess) return (int)e;
       wl += layer;
     }
@@ -305,21 +275,33 @@ extern "C" int rcan_x2_u8(const uint8_t* bgr, long long frame_stride,
   return (int)cudaGetLastError();
 }
 
-// One 64->64 layer with epilogue `epi` (conv3x3.cuh) on an H x W NHWC map,
-// for the tests on the card: in -> out, with skip (EPI_SKIP),
-// pool (EPI_POOL: grid * POOL_PARTS * 64 floats) or (dy, dx) (EPI_SHUFFLE:
-// out is 2H x 2W x 64).
-extern "C" int rcan_conv3x3_f32(int epi, const float* in, float* out,
-                                const float* wl, const float* skip,
-                                float* pool, int dy, int dx, int H, int W,
-                                int grid, int smem_bytes, void* stream) {
+// One 64->64 layer with epilogue `epi` and loader `load` (conv3x3.cuh) on
+// an H x W NHWC map, for the tests on the card: in -> out, with skip
+// (EPI_SKIP), pool (EPI_POOL: grid * POOL_PARTS * 64 floats) or (dy, dx)
+// (EPI_SHUFFLE: out is 2H x 2W x 64); the loaders LOAD_APPLY* form in + s t
+// from t, the `parts` x 64 pool sums ca_pool and the CA weights ca, s over
+// the H x W pixels, and write s (64 floats) where s is not null (in is
+// grouped where in_grouped); LOAD_APPLY stores in + s t to x, grouped.
+// RCAN's instances only.
+extern "C" int rcan_conv3x3_f32(int epi, int load, const float* in,
+                                float* out, const float* wl,
+                                const float* skip, float* pool,
+                                const float* t, const float* ca_pool,
+                                const float* ca, float* x, float* s,
+                                int parts, int in_grouped, int dy, int dx,
+                                int H, int W, int grid, int smem_bytes,
+                                void* stream) {
   if (smem_bytes != CONV3X3_SMEM_BYTES || grid <= 0 || epi < EPI_RELU ||
-      epi > EPI_SHUFFLE || (reinterpret_cast<uintptr_t>(wl) & 15) != 0 ||
+      epi > EPI_SHUFFLE || load < LOAD_PLAIN ||
+      load > LOAD_APPLY_LAST || (reinterpret_cast<uintptr_t>(wl) & 15) != 0 ||
       4LL * H * W >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
   const int err = rcan_conv3x3_prepare();
   if (err != 0) return err;
-  return (int)rcan_conv3x3((Epilogue)epi, in, out, wl, H, W,
-                           EpiArgs{skip, pool, dy, dx}, grid,
-                           (cudaStream_t)stream);
+  return (int)rcan_conv3x3(
+      (Epilogue)epi, (Loader)load, in, out, wl, H, W,
+      EpiArgs{skip, pool, dy, dx},
+      LoadArgs{t, ca_pool, ca, x, s, parts, (float)((long long)H * W),
+               in_grouped},
+      grid, (cudaStream_t)stream);
 }

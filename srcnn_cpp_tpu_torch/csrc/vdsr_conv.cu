@@ -51,11 +51,19 @@
 // ops/cuda_vdsr.py::vdsr_plan and handed to the launcher, which refuses a
 // plan that does not match the constants below.
 //
-// The 64->64 kernel's body is shared with RCAN (rcan.cu): its epilogue is
-// a template parameter (conv3x3.cuh).  VDSR's vdsr_conv3x3_kernel is the
-// EPI_RELU store; RCAN launches rcan_conv3x3_kernel<EPI> through
-// rcan_conv3x3 below, for its ReLU, pooled, skip-adding and pixel-shuffle
-// layers.
+// The 64->64 kernel's body is shared with RCAN (rcan.cu): its epilogue and
+// its loader are template parameters (conv3x3.cuh).  VDSR's
+// vdsr_conv3x3_kernel is the EPI_RELU store on the plain loader; RCAN
+// launches rcan_conv3x3_kernel<EPI, LOAD> through rcan_conv3x3 below, for
+// its ReLU, pooled, skip-adding and pixel-shuffle layers, and with the
+// loader that forms an RCAB's result x = x_prev + s * t (channel attention)
+// as it stages the input of the conv that reads it: the producer first
+// computes s from the pool sums of the conv that wrote t (ca_finish, while
+// the first stage's weights arrive), then reads x_prev and t where the
+// plain loader reads its input, 512 bytes a pixel instead of 256, both
+// grouped by 8 channels so that a stage's reads are contiguous rows, and
+// stores x once, from the unit that owns the pixel.  ptxas fits these
+// instances in the block's 168 registers a thread without spilling.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -102,6 +110,15 @@ constexpr int W_EDGE = TAPS * C;            // conv1 / conv20: [9][64] taps
 static_assert(W_STAGE == 9216 && ACT_PLANE == 4224 && STAGE == 17664,
               "stage layout (ops/cuda_vdsr.py::stage_layout)");
 static_assert(SMEM_BYTES == 211968 + 48, "shared memory of the plan");
+// LOAD_APPLY*: CA's s (64 floats) after the mbarriers; while s is computed,
+// its scratch (z, the hidden layer, the pool sums) in stages 1 and 2
+constexpr int S_OFF = BAR_OFF + 2 * STAGES * 2;
+constexpr size_t SMEM_APPLY_BYTES = SMEM_BYTES + sizeof(float) * C;
+static_assert(sizeof(float) * S_OFF == SMEM_BYTES && S_OFF % 4 == 0,
+              "s after the mbarriers, 16-byte aligned");
+static_assert(C + CA_HIDDEN + CA_PARTS_MAX * C <= 2 * STAGE &&
+              (C + CA_HIDDEN) % 4 == 0, "the pool sums fit stages 1 and 2");
+static_assert(SMEM_APPLY_BYTES <= 232448, "one block's shared memory");
 static_assert(C == CONV3X3_C && NCONS == POOL_PARTS &&
               LAYER_FLOATS == CONV3X3_LAYER_FLOATS &&
               SMEM_BYTES == CONV3X3_SMEM_BYTES, "conv3x3.cuh");
@@ -175,13 +192,85 @@ struct Units {
 
 // --- producer: the weights and the split activations of each stage ----------
 
+// Named barrier 1 over the producer warpgroup's 128 threads; the fence
+// orders their shared-memory accesses before the bulk copies after it.
+__device__ __forceinline__ void producer_sync() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  asm volatile("bar.sync 1, 128;\n" ::: "memory");
+}
+
+// CA's s of a LOAD_APPLY* launch into s (shared memory), by the producer:
+// the pool sums staged in `scratch` (stages 1 and 2, which the ring fills
+// only after this), then ca_finish, as RCAN's finish computed it.
+__device__ __forceinline__ void ca_scale(const LoadArgs& la, float* scratch,
+                                         float* s, int tid) {
+  float* z = scratch;
+  float* hid = z + C;
+  float* pool = hid + CA_HIDDEN;
+  const float4* src = reinterpret_cast<const float4*>(la.pool);
+  float4* dst = reinterpret_cast<float4*>(pool);
+  const int n4 = la.parts * (C / 4);
+#pragma unroll 4
+  for (int i = tid; i < n4; i += 128) dst[i] = __ldg(src + i);
+  producer_sync();
+  ca_finish(pool, la.parts, la.npx, la.ca, z, hid, s, tid,
+            [] { producer_sync(); });
+  if (la.s != nullptr && blockIdx.x == 0 && tid < C) la.s[tid] = s[tid];
+}
+
+// LOAD_APPLY*'s maps.  x_prev is NHWC (a group's input) or, as this loader
+// stores x, in channel groups: [8][H][W][8], group q of every pixel
+// contiguous; t too, as the pool epilogue stores it.  A stage then reads
+// rows of 130 x 32 contiguous bytes of each, not 32 bytes of every 256:
+// with t NHWC the fused loader added 0.39 ms to a 1080p layer, with t
+// grouped too 0.19 ms (one H100 at 700 W).  Float offset of the channels
+// 8q + 4h .. + 3 of pixel px in each:
+__device__ __forceinline__ size_t nhwc(size_t px, int q, int h) {
+  return px * C + q * CG + 4 * h;
+}
+__device__ __forceinline__ size_t grouped(size_t px, size_t npx, int q,
+                                          int h) {
+  return ((size_t)q * npx + px) * CG + 4 * h;
+}
+
+// A read-only load that asks L2 to fetch the 256 bytes around it, which
+// the unit reads next: its next pixels (grouped) or channels (NHWC).  It
+// took 0.05 ms off a 1080p layer with t and x grouped, 0.11 ms with both
+// NHWC (one H100 at 700 W).
+__device__ __forceinline__ float4 ldg_l2_256(const float* p) {
+  float4 v;
+  asm("ld.global.nc.L2::256B.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+      : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w) : "l"(p));
+  return v;
+}
+
+// x + s * t, CA's apply of one channel quad
+__device__ __forceinline__ float4 ca_apply(float4 x, float4 t, float4 s) {
+  return make_float4(__fadd_rn(x.x, __fmul_rn(t.x, s.x)),
+                     __fadd_rn(x.y, __fmul_rn(t.y, s.y)),
+                     __fadd_rn(x.z, __fmul_rn(t.z, s.z)),
+                     __fadd_rn(x.w, __fmul_rn(t.w, s.w)));
+}
+
+template <int LOAD>
 __device__ __forceinline__ void producer(const float* __restrict__ in,
                                          const float* __restrict__ wl,
                                          const Units& un, float* smem,
-                                         uint64_t* full, uint64_t* empty) {
+                                         uint64_t* full, uint64_t* empty,
+                                         const LoadArgs& la) {
   const int tid = threadIdx.x & 127;
   constexpr int ITEMS = IN_ROWS * COLS * 2;      // float4s of a stage
   constexpr int PER = (ITEMS + 127) / 128;
+  constexpr bool APPLY = LOAD != LOAD_PLAIN;
+  if constexpr (APPLY) {
+    // the first stage's weights arrive while s is computed
+    if (tid == 0 && (int)blockIdx.x < un.count) {
+      bar_arrive_tx(&full[0], W_STAGE * 4);
+      bulk_copy(smem, wl, W_STAGE * 4, &full[0]);
+    }
+    ca_scale(la, smem + STAGE, smem + S_OFF, tid);
+  }
+  const size_t npx = (size_t)un.H * un.W;
   uint32_t n = 0;                                // stages filled so far
   for (int u = blockIdx.x; u < un.count; u += gridDim.x) {
     const int y0 = un.y0(u), x0 = un.x0(u);
@@ -189,26 +278,42 @@ __device__ __forceinline__ void producer(const float* __restrict__ in,
       const int s = n % STAGES;
       bar_wait(&empty[s], pass_parity<STAGES>(n) ^ 1u);
       float* st = smem + s * STAGE;
-      if (tid == 0) {
+      if (tid == 0 && (!APPLY || n > 0)) {
         bar_arrive_tx(&full[s], W_STAGE * 4);
         bulk_copy(st, wl + q * W_STAGE, W_STAGE * 4, &full[s]);
       }
       float4 v[PER];
+      float4 t[APPLY ? PER : 1];                 // LOAD_APPLY*: t
 #pragma unroll
       for (int k = 0; k < PER; ++k) {
         const int idx = tid + 128 * k;
         const int r = idx >> 1, i = r / COLS;
         const int gy = y0 - 1 + i, gx = x0 - 1 + r % COLS;
         v[k] = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (idx < ITEMS && gy >= 0 && gy < un.H && gx >= 0 && gx < un.W)
-          v[k] = __ldg(reinterpret_cast<const float4*>(
-              in + ((size_t)gy * un.W + gx) * C + q * CG + 4 * (idx & 1)));
+        if constexpr (APPLY) t[k] = v[k];     // x = 0 + 0 s outside
+        if (idx < ITEMS && gy >= 0 && gy < un.H && gx >= 0 && gx < un.W) {
+          if constexpr (APPLY) {
+            const size_t px = (size_t)gy * un.W + gx;
+            const int h = idx & 1;
+            v[k] = ldg_l2_256(in + (la.in_grouped ? grouped(px, npx, q, h)
+                                                  : nhwc(px, q, h)));
+            t[k] = ldg_l2_256(la.t + grouped(px, npx, q, h));
+          } else {
+            v[k] = __ldg(reinterpret_cast<const float4*>(
+                in + ((size_t)gy * un.W + gx) * C + q * CG + 4 * (idx & 1)));
+          }
+        }
       }
+      // a thread's items all hold channels 8q + 4 (tid & 1) .. + 3
+      float4 sv;
+      if constexpr (APPLY)
+        sv = reinterpret_cast<const float4*>(smem + S_OFF)[2 * q + (tid & 1)];
 #pragma unroll
       for (int k = 0; k < PER; ++k) {
         const int idx = tid + 128 * k;
         if (idx < ITEMS) {
           const int r = idx >> 1, i = r / COLS, col = r % COLS;
+          if constexpr (APPLY) v[k] = ca_apply(v[k], t[k], sv);
           float* hi = st + W_STAGE + i * ACT_ROW + (idx & 1) * ACT_HALF +
                       col * 4;
           uint4 h, l;
@@ -223,6 +328,21 @@ __device__ __forceinline__ void producer(const float* __restrict__ in,
       // these generic-proxy stores are read by wgmma (the async proxy)
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
       bar_arrive(&full[s]);
+      if constexpr (LOAD == LOAD_APPLY) {
+        // x of the unit's own pixels (rows y0, y0 + 1, columns x0 .. +
+        // 127), grouped; after the arrive, which need not wait for them
+#pragma unroll
+        for (int k = 0; k < PER; ++k) {
+          const int idx = tid + 128 * k;
+          const int r = idx >> 1, i = r / COLS, col = r % COLS;
+          const int gy = y0 - 1 + i, gx = x0 - 1 + col;
+          if (idx < ITEMS && i >= 1 && i <= ROWS && col >= 1 && col <= TN &&
+              gy < un.H && gx < un.W)
+            *reinterpret_cast<float4*>(
+                la.x + grouped((size_t)gy * un.W + gx, npx, q, idx & 1)) =
+                v[k];
+        }
+      }
     }
   }
 }
@@ -306,7 +426,14 @@ __device__ __forceinline__ void consumer(float* __restrict__ out,
             if (x0 + px < un.W) {
               const size_t ox = shuffle ? 2 * (size_t)(x0 + px) + ea.dx
                                         : (size_t)(x0 + px);
-              const size_t i = (oy * ow + ox) * C + co0 + 8 * (e >> 1);
+              // EPI_POOL stores t grouped (conv3x3.cuh), as the apply
+              // loader reads it: channel co0 + 8 (e >> 1) is 8 (2 warp +
+              // (e >> 1)) + g
+              const size_t i =
+                  EPI == EPI_POOL
+                      ? ((size_t)(2 * warp + (e >> 1)) * un.H * un.W +
+                         oy * ow + ox) * CG + g
+                      : (oy * ow + ox) * C + co0 + 8 * (e >> 1);
               float v = acc[j][e];
               if constexpr (EPI == EPI_SKIP)
                 v = __fadd_rn(v, __ldg(ea.skip + i));
@@ -338,11 +465,12 @@ __device__ __forceinline__ void consumer(float* __restrict__ out,
   }
 }
 
-template <int EPI>
+template <int EPI, int LOAD>
 __device__ __forceinline__ void conv3x3(const float* __restrict__ in,
                                         float* __restrict__ out,
                                         const float* __restrict__ wl, int H,
-                                        int W, const EpiArgs& ea) {
+                                        int W, const EpiArgs& ea,
+                                        const LoadArgs& la) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + BAR_OFF);
@@ -358,7 +486,7 @@ __device__ __forceinline__ void conv3x3(const float* __restrict__ in,
   const Units un(H, W);
   const int wg = threadIdx.x / 128;
   if (wg == NCONS)
-    producer(in, wl, un, smem, full, empty);
+    producer<LOAD>(in, wl, un, smem, full, empty, la);
   else
     consumer<EPI>(out, wl + W_LAYER, un, smem, full, empty, wg, ea);
 }
@@ -366,14 +494,36 @@ __device__ __forceinline__ void conv3x3(const float* __restrict__ in,
 __global__ void __launch_bounds__(NTHREADS, 1)
 vdsr_conv3x3_kernel(const float* __restrict__ in, float* __restrict__ out,
                     const float* __restrict__ wl, int H, int W) {
-  conv3x3<EPI_RELU>(in, out, wl, H, W, EpiArgs{});
+  conv3x3<EPI_RELU, LOAD_PLAIN>(in, out, wl, H, W, EpiArgs{}, LoadArgs{});
 }
 
-template <int EPI>
+template <int EPI, int LOAD>
 __global__ void __launch_bounds__(NTHREADS, 1)
 rcan_conv3x3_kernel(const float* __restrict__ in, float* __restrict__ out,
-                    const float* __restrict__ wl, int H, int W, EpiArgs ea) {
-  conv3x3<EPI>(in, out, wl, H, W, ea);
+                    const float* __restrict__ wl, int H, int W, EpiArgs ea,
+                    LoadArgs la) {
+  conv3x3<EPI, LOAD>(in, out, wl, H, W, ea, la);
+}
+
+template <int LOAD>
+constexpr size_t smem_bytes() {
+  return LOAD == LOAD_PLAIN ? SMEM_BYTES : SMEM_APPLY_BYTES;
+}
+
+template <int EPI, int LOAD>
+cudaError_t opt_in() {
+  return cudaFuncSetAttribute(rcan_conv3x3_kernel<EPI, LOAD>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)smem_bytes<LOAD>());
+}
+
+template <int EPI, int LOAD>
+cudaError_t launch(const float* in, float* out, const float* wl, int H,
+                   int W, const EpiArgs& ea, const LoadArgs& la, int grid,
+                   cudaStream_t s) {
+  rcan_conv3x3_kernel<EPI, LOAD><<<grid, NTHREADS, smem_bytes<LOAD>(), s>>>(
+      in, out, wl, H, W, ea, la);
+  return cudaGetLastError();
 }
 
 // --- conv1 and conv20 on the SIMT units --------------------------------------
@@ -527,42 +677,45 @@ extern "C" int vdsr_y_u8(const uint8_t* y, long long frame_stride,
 
 namespace srcnn_hopper {
 
+// RCAN's instances: every epilogue on the plain loader, an RCAB's first
+// conv on LOAD_APPLY and a group's last conv on LOAD_APPLY_LAST.
 int rcan_conv3x3_prepare() {
-  const void* kernels[] = {
-      (const void*)rcan_conv3x3_kernel<EPI_RELU>,
-      (const void*)rcan_conv3x3_kernel<EPI_POOL>,
-      (const void*)rcan_conv3x3_kernel<EPI_SKIP>,
-      (const void*)rcan_conv3x3_kernel<EPI_SHUFFLE>};
-  for (const void* k : kernels) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);
+  const cudaError_t errs[] = {
+      opt_in<EPI_RELU, LOAD_PLAIN>(),    opt_in<EPI_POOL, LOAD_PLAIN>(),
+      opt_in<EPI_SKIP, LOAD_PLAIN>(),    opt_in<EPI_SHUFFLE, LOAD_PLAIN>(),
+      opt_in<EPI_RELU, LOAD_APPLY>(),    opt_in<EPI_SKIP, LOAD_APPLY_LAST>()};
+  for (const cudaError_t err : errs)
     if (err != cudaSuccess) return (int)err;
-  }
   return 0;
 }
 
-cudaError_t rcan_conv3x3(Epilogue epi, const float* in, float* out,
-                         const float* wl, int H, int W, EpiArgs ea, int grid,
-                         cudaStream_t s) {
-  switch (epi) {
-    case EPI_RELU:
-      rcan_conv3x3_kernel<EPI_RELU><<<grid, NTHREADS, SMEM_BYTES, s>>>(
-          in, out, wl, H, W, ea);
-      break;
-    case EPI_POOL:
-      rcan_conv3x3_kernel<EPI_POOL><<<grid, NTHREADS, SMEM_BYTES, s>>>(
-          in, out, wl, H, W, ea);
-      break;
-    case EPI_SKIP:
-      rcan_conv3x3_kernel<EPI_SKIP><<<grid, NTHREADS, SMEM_BYTES, s>>>(
-          in, out, wl, H, W, ea);
-      break;
-    case EPI_SHUFFLE:
-      rcan_conv3x3_kernel<EPI_SHUFFLE><<<grid, NTHREADS, SMEM_BYTES, s>>>(
-          in, out, wl, H, W, ea);
-      break;
+cudaError_t rcan_conv3x3(Epilogue epi, Loader load, const float* in,
+                         float* out, const float* wl, int H, int W,
+                         EpiArgs ea, LoadArgs la, int grid, cudaStream_t s) {
+  if (load != LOAD_PLAIN && (la.parts <= 0 || la.parts > CA_PARTS_MAX))
+    return cudaErrorInvalidValue;
+  if (load == LOAD_PLAIN) {
+    switch (epi) {
+      case EPI_RELU:
+        return launch<EPI_RELU, LOAD_PLAIN>(in, out, wl, H, W, ea, la, grid,
+                                            s);
+      case EPI_POOL:
+        return launch<EPI_POOL, LOAD_PLAIN>(in, out, wl, H, W, ea, la, grid,
+                                            s);
+      case EPI_SKIP:
+        return launch<EPI_SKIP, LOAD_PLAIN>(in, out, wl, H, W, ea, la, grid,
+                                            s);
+      case EPI_SHUFFLE:
+        return launch<EPI_SHUFFLE, LOAD_PLAIN>(in, out, wl, H, W, ea, la,
+                                               grid, s);
+    }
   }
-  return cudaGetLastError();
+  if (load == LOAD_APPLY && epi == EPI_RELU)
+    return launch<EPI_RELU, LOAD_APPLY>(in, out, wl, H, W, ea, la, grid, s);
+  if (load == LOAD_APPLY_LAST && epi == EPI_SKIP)
+    return launch<EPI_SKIP, LOAD_APPLY_LAST>(in, out, wl, H, W, ea, la, grid,
+                                             s);
+  return cudaErrorInvalidValue;   // an instance RCAN does not launch
 }
 
 }  // namespace srcnn_hopper

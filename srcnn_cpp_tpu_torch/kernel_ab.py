@@ -10,17 +10,22 @@ events, the conv K1 (``srcnn_y_fused``), the pre-pass K2
 (``pre_upscale_fused``), the post-pass K3 (``merge_ycrcb_to_bgr_fused``),
 the VDSR chain (``vdsr_y_fused``, on the same 4 upscaled Y planes with
 ``portbench/configs/vdsr20_seeded.npz``: the 64->64 conv that RCAN
-shares) and the device-resident pipeline (``upscale_planar``) of both,
-and K3 on 4 seeded [1079,1921] planes (H*W % 16 != 0), in turns (parent, change,
+shares), RCAN x2 (``rcan_fused`` on the same 4 BGR frames with
+``portbench/configs/rcan_x2_seeded.jsonl``, fewer repetitions: a call
+takes ~0.66 s) and the device-resident pipeline (``upscale_planar``) of
+both, and K3 on 4 seeded [1079,1921] planes (H*W % 16 != 0), in turns (parent, change,
 change, parent) for ``--rounds`` rounds; K2 and both K3 cases also from
 CUDA graph replays; the host-array entry (``upscale_bgr_batch`` on the
 same frames as a host array, host clock per call).  Before timing it
-checks that both give the same K2 and K3 outputs, K1 and VDSR outputs
+checks that both give the same K2, K3 and RCAN outputs, K1 and VDSR outputs
 within 1 LSB of each other (it prints their largest difference) and
 host-array outputs within 2 LSB, and it profiles
 20 calls of each pipeline and of the odd-plane K3 (``torch.profiler``:
 device time by kernel, busy share of the span), and prints K2's static
-SASS instruction counts of both builds (``cuobjdump``, where it runs).
+SASS instruction counts of both builds and whether the shared 64->64
+conv's plain-loader instances (``vdsr_conv3x3_kernel``, RCAN's
+``rcan_conv3x3_kernel`` of each epilogue) compiled to the same SASS in
+both (``cuobjdump``, where it runs).
 Prints one line per round
 and a JSON summary (medians over the rounds, the profiles, the card's name
 and power limit), also written to ``--out``.  Needs a CUDA card.
@@ -46,6 +51,7 @@ import torch
 _ALIAS = "srcnn_ab_parent"
 VDSR_NPZ = Path(__file__).resolve().parent.parent / \
     "portbench/configs/vdsr20_seeded.npz"
+RCAN_RECIPE = VDSR_NPZ.with_name("rcan_x2_seeded.jsonl")
 
 
 def load_checkout(root: Path, alias: str = _ALIAS):
@@ -158,13 +164,10 @@ def profile(fn, iters: int = 20) -> dict:
             "kernels_ms_per_call": kernels}
 
 
-def sass_counts(lib: Path, kernel: str,
-                ops=("I2F", "I2FP", "F2I", "FRND", "IDP", "LDS", "STS",
-                     "LDG", "STG")) -> dict | None:
-    """Static counts of the SASS opcodes ``ops`` in the code of ``kernel``
-    (a substring of its mangled name) within the built library ``lib``
-    (``cuobjdump -sass``): each instruction once, however often it runs.
-    None where the toolkit has no ``cuobjdump`` or it fails."""
+def sass_code(lib: Path) -> dict[str, list[str]] | None:
+    """Each function's SASS instructions in the built library ``lib``
+    (``cuobjdump -sass``), by mangled name.  None where the toolkit has no
+    ``cuobjdump`` or it fails."""
     exe = shutil.which("cuobjdump")
     if exe is None and Path("/usr/local/cuda/bin/cuobjdump").exists():
         exe = "/usr/local/cuda/bin/cuobjdump"
@@ -177,16 +180,50 @@ def sass_counts(lib: Path, kernel: str,
         return None
     if run.returncode != 0:
         return None
-    counts, inside = dict.fromkeys(ops, 0), False
+    code, body = {}, None
     for line in run.stdout.splitlines():
         if "Function :" in line:
-            inside = kernel in line
+            body = code.setdefault(line.split("Function :")[1].strip(), [])
             continue
-        m = inside and re.search(r"/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?"
-                                 r"([A-Z][A-Z0-9]*)", line)
-        if m and m.group(1) in counts:
-            counts[m.group(1)] += 1
+        m = body is not None and re.search(r"/\*[0-9a-f]+\*/\s+(.*?);", line)
+        if m:
+            body.append(m.group(1).strip())
+    return code
+
+
+def sass_counts(lib: Path, kernel: str,
+                ops=("I2F", "I2FP", "F2I", "FRND", "IDP", "LDS", "STS",
+                     "LDG", "STG"), code: dict | None = None) -> dict | None:
+    """Static counts of the SASS opcodes ``ops`` in the code of ``kernel``
+    (a substring of its mangled name) within the built library ``lib``
+    (or its :func:`sass_code`): each instruction once, however often it
+    runs.  None where the toolkit has no ``cuobjdump`` or it fails."""
+    code = code if code is not None else sass_code(lib)
+    if code is None:
+        return None
+    counts = dict.fromkeys(ops, 0)
+    for name, body in code.items():
+        if kernel in name:
+            for ins in body:
+                m = re.match(r"(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)", ins)
+                if m and m.group(1) in counts:
+                    counts[m.group(1)] += 1
     return counts
+
+
+def plain_conv_sass(code: dict) -> dict[str, list[str]]:
+    """The 64->64 conv's plain-loader instances in :func:`sass_code`:
+    ``vdsr_conv3x3_kernel`` and ``rcan_conv3x3_kernel<e>`` of each epilogue
+    ``e`` (mangled ``...ILi<e>EE`` before the loader became a template
+    parameter, ``...ILi<e>ELi0EE`` after)."""
+    out = {}
+    for name, body in code.items():
+        if "vdsr_conv3x3_kernel" in name:
+            out["vdsr_conv3x3_kernel"] = body
+        m = re.search(r"rcan_conv3x3_kernelILi(\d+)E(?:Li(\d+)E)?E", name)
+        if m and m.group(2) in (None, "0"):
+            out[f"rcan_conv3x3_kernel<{m.group(1)}>"] = body
+    return out
 
 
 def _card() -> str:
@@ -212,17 +249,30 @@ def main(argv=None) -> int:
     card = _card()
 
     load_checkout(args.parent)
-    sides = {}
+    sides, code = {}, {}
     for tag, name in (("parent", _ALIAS), ("change", "srcnn_cpp_tpu_torch")):
         m = {k: importlib.import_module(f"{name}.{k}") for k in
              ("runtime", "pipeline", "weights", "ops.cuda_srcnn",
-              "ops.cuda_resize", "ops.cuda_merge", "ops.cuda_vdsr")}
+              "ops.cuda_resize", "ops.cuda_merge", "ops.cuda_vdsr",
+              "ops.cuda_rcan")}
         path, secs, _ = m["runtime"].build()
         m["runtime"].library()
+        code[tag] = sass_code(path)
         print(f"{tag}: built {path} in {secs:.1f} s; K2's static SASS "
-              f"counts {sass_counts(path, 'pre_pass_kernel')}",
+              f"counts {sass_counts(path, 'pre_pass_kernel', code=code[tag])}",
               flush=True)
         sides[tag] = m
+    if code["parent"] is None or code["change"] is None:
+        print("SASS of the 64->64 conv: not read (no cuobjdump)", flush=True)
+    else:
+        convs = {tag: plain_conv_sass(c) for tag, c in code.items()}
+        for kernel, body in sorted(convs["parent"].items()):
+            other = convs["change"].get(kernel)
+            verdict = ("identical" if other == body else "absent"
+                       if other is None else "DIFFERS")
+            print(f"SASS {kernel}: {verdict} ({len(body)} instructions in "
+                  f"the parent, {len(other or [])} in the change)",
+                  flush=True)
 
     rng = np.random.default_rng(0)
     x = torch.from_numpy(rng.integers(0, 256, (4, 3, 540, 960),
@@ -250,9 +300,12 @@ def main(argv=None) -> int:
         y_sr = conv(up[:, 0], w)
         vdsr = m["ops.cuda_vdsr"].vdsr_y_fused
         wv = m["weights"].load_vdsr_weights(VDSR_NPZ, device="cuda")
+        rcan = m["ops.cuda_rcan"].rcan_fused
+        wr = m["weights"].load_rcan_weights(RCAN_RECIPE, device="cuda")
         fns[tag] = {
             "srcnn_y_fused": (lambda c=conv, u=up, w=w: c(u[:, 0], w)),
             "vdsr_y_fused": (lambda f=vdsr, u=up, w=wv: f(u[:, 0], w)),
+            "rcan_fused": (lambda f=rcan, w=wr: f(x, w, hw)),
             "pre_upscale_fused": (lambda p=pre: p(x, hw)),
             "merge_ycrcb_to_bgr_fused": (lambda f=merge, y=y_sr, u=up:
                                          f(y, u)),
@@ -264,9 +317,11 @@ def main(argv=None) -> int:
         }
     if not torch.equal(ups["parent"], ups["change"]):
         raise AssertionError("K2 outputs differ between the two trees")
-    for name in ("merge_ycrcb_to_bgr_fused", k3_odd):
+    for name in ("merge_ycrcb_to_bgr_fused", k3_odd, "rcan_fused"):
         if not torch.equal(fns["parent"][name](), fns["change"][name]()):
             raise AssertionError(f"{name}: outputs differ between the trees")
+    print("K3, K3 on odd planes and RCAN: bit-equal to the parent",
+          flush=True)
     # K2 and K3 take less device time than their wrappers' host time: they
     # are also timed from CUDA graph replays, in turns like the rest
     graphed = ("pre_upscale_fused", "merge_ycrcb_to_bgr_fused", k3_odd)
@@ -290,9 +345,11 @@ def main(argv=None) -> int:
     for r in range(args.rounds):
         row = {}
         for name, suffix, timer in timed:
-            p = [timer(fns["parent"][name], args.reps)]
-            c = [timer(fns["change"][name], args.reps) for _ in range(2)]
-            p.append(timer(fns["parent"][name], args.reps))
+            reps = max(3, args.reps // 5) if name == "rcan_fused" \
+                else args.reps
+            p = [timer(fns["parent"][name], reps)]
+            c = [timer(fns["change"][name], reps) for _ in range(2)]
+            p.append(timer(fns["parent"][name], reps))
             row[name + suffix] = {"parent": p, "change": c}
             print(f"round {r}: {name}{suffix}: parent {p[0]:.4f}/{p[1]:.4f} "
                   f"ms, change {c[0]:.4f}/{c[1]:.4f} ms ({card})", flush=True)

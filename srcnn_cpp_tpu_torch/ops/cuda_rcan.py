@@ -7,19 +7,22 @@
 authors' ``quantize``.  On a CUDA tensor it enqueues, frame by frame, the
 head (3->64, SIMT), each RCAB's two 64->64 convs on Hopper's warpgroup MMA
 in 3xTF32 (the kernel VDSR runs, with RCAN's epilogues: the second conv
-sums its outputs per channel for channel attention), channel attention's
-finish and apply, each group's last conv and the body conv with their
-skips added in the epilogue, the upsampler as four 64->64 convs storing
-pixel-shuffled, and the tail (64->3 at the output size, SIMT) with the
-mean, the clamp and the rounding fused in.  On a CPU tensor it runs the
+sums its outputs per channel for channel attention; and its loaders: the
+conv that reads an RCAB's result computes the RCAB's attention ``s`` from
+those sums and forms ``x + s * t`` as it stages its input), each group's
+last conv and the body conv with their skips added in the epilogue, the
+upsampler as four 64->64 convs storing pixel-shuffled, and the tail (64->3
+at the output size, SIMT) with the mean, the clamp and the rounding fused
+in: 417 kernels a frame at the published depth.  On a CPU tensor it runs the
 plain fp32 ``F.conv2d`` path of :mod:`.rcan`.  The two sum in other
 orders, so they agree to within 1 LSB on a small share of bytes.
 
 This module also holds what the CPU tests check of the launch: the order
 of the packed layers (:func:`mid_order`), the packed buffers
-(:func:`pack_rcan`) and the plan with its workspace (:func:`rcan_plan`);
-and :func:`conv3x3_variant`, one layer with one epilogue, for the tests on
-the card.
+(:func:`pack_rcan`), the plan with its workspace (:func:`rcan_plan`) and
+the kernels of a frame with the maps each reads and writes
+(:func:`launch_schedule`); and :func:`conv3x3_variant`, one layer with one
+epilogue and one loader, for the tests on the card.
 """
 
 from __future__ import annotations
@@ -37,12 +40,13 @@ from .cuda_vdsr import conv_grid, pack_layer, vdsr_smem_bytes
 from .rcan import rcan_x2
 
 __all__ = ["rcan_fused", "rcan_plain", "pack_rcan", "mid_order",
-           "rcan_plan", "conv3x3_variant"]
+           "rcan_plan", "launch_schedule", "conv3x3_variant"]
 
 #: floats of one RCAB's channel attention: W1 [4][64], b1, W2 [64][4], b2
 CA_FLOATS = 4 * CHANNELS + 4 + CHANNELS * 4 + CHANNELS
-#: the conv's epilogues (``csrc/conv3x3.cuh``)
+#: the conv's epilogues and loaders (``csrc/conv3x3.cuh``)
 EPILOGUES = {"relu": 0, "pool": 1, "skip": 2, "shuffle": 3}
+LOADERS = {"plain": 0, "apply": 1, "apply_last": 2}
 #: the upsampler's output groups: group ``q`` holds output channels
 #: ``4c + 2dy + dx`` of ``(dy, dx) = SHUFFLE[q]``, stored at ``(2h + dy,
 #: 2w + dx)``
@@ -62,6 +66,37 @@ def mid_order(groups: int, blocks: int) -> list[tuple[str, int | None]]:
         out.append((f"body.{g}.body.{blocks}", None))
     out.append((f"body.{groups}", None))
     return out + [("tail.0.0", q) for q in range(len(SHUFFLE))]
+
+
+def launch_schedule(groups: int, blocks: int) -> list[tuple]:
+    """The kernels ``rcan_x2_u8`` enqueues for a frame, in order: ``(kernel,
+    epilogue, loader, maps read, maps written)``, the maps named after the
+    workspace's (``h`` the head's output, ``g0``, ``g1`` the group maps,
+    ``x``, ``a``, ``t``, ``hr`` the upsampled map, ``pool`` the partial
+    sums).  RCAB ``k``'s result ``x_k = x_{k-1} + s_k t_k`` (``x_{-1}`` the
+    group's input) is formed by the loader of the conv after it, which
+    stores it for ``k < blocks - 1`` in ``x`` where ``blocks - 2 - k`` is
+    even, else in the map the group's last conv writes."""
+    out = [("head", None, None, ("frame",), ("h",))]
+    gin = "h"
+    for g in range(groups):
+        gout = f"g{g % 2}"
+        xprev = gin
+        for k in range(blocks):
+            if k == 0:
+                out.append(("conv", "relu", "plain", (gin,), ("a",)))
+            else:
+                x = "x" if (blocks - 1 - k) % 2 == 0 else gout
+                out.append(("conv", "relu", "apply", (xprev, "t", "pool"),
+                            ("a", x)))
+                xprev = x
+            out.append(("conv", "pool", "plain", ("a",), ("t", "pool")))
+        out.append(("conv", "skip", "apply_last", (xprev, "t", "pool", gin),
+                    (gout,)))
+        gin = gout
+    out.append(("conv", "skip", "plain", (gin, "h"), ("x",)))
+    out += [("conv", "shuffle", "plain", ("x",), ("hr",))] * len(SHUFFLE)
+    return out + [("tail", None, None, ("hr",), ("out",))]
 
 
 def _pack(weights: RCANWeights) -> tuple:
@@ -114,7 +149,7 @@ def _plan(h: int, w: int, num_sms: int) -> tuple[int, int, int]:
         units, grid = conv_grid(h, w, num_sms)
         feature_map = h * w * CHANNELS
         workspace = (MAPS + SCALE * SCALE) * feature_map \
-            + grid * POOL_PARTS * CHANNELS + CHANNELS
+            + grid * POOL_PARTS * CHANNELS
         return units, grid, workspace
 
 
@@ -123,8 +158,8 @@ def rcan_plan(h: int, w: int, num_sms: int) -> dict:
     persistent ``grid`` (as :func:`.cuda_vdsr.vdsr_plan` plans VDSR's) and
     ``smem_bytes``; ``workspace_floats``, the call's scratch: 6 feature
     maps of ``h x w x 64`` float32 and one of ``2h x 2w x 64`` (5.3 GB at
-    1080p), the pool's partial sums (``grid x 2 x 64``) and ``s`` (64); the
-    frames of a call run one after another through it."""
+    1080p) and the pool's partial sums (``grid x 2 x 64``); the frames of a
+    call run one after another through it."""
     units, grid, workspace = _plan(h, w, num_sms)
     return {"units": units, "grid": grid, "smem_bytes": vdsr_smem_bytes(),
             "workspace_floats": workspace}
@@ -176,38 +211,86 @@ def rcan_fused(bgr_p: torch.Tensor, weights: RCANWeights,
                     weights.blocks, plan["grid"], plan["smem_bytes"],
                     runtime.current_stream()), "rcan_x2_u8")
             rcan_fused.launches += 1
+            rcan_fused.ca_folded += b * weights.groups * weights.blocks
         return out
 
 
 rcan_fused.launches = 0
+#: RCABs whose channel attention ran in a conv's loader (every one on CUDA)
+rcan_fused.ca_folded = 0
 
 
 def conv3x3_variant(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                     epilogue: str, skip: torch.Tensor | None = None,
-                    q: int = 0) -> tuple[torch.Tensor, torch.Tensor | None]:
+                    q: int = 0, t: torch.Tensor | None = None,
+                    ca_pool: torch.Tensor | None = None,
+                    ca: torch.Tensor | None = None,
+                    grouped: bool = False) -> dict:
     """One 64->64 layer of the shared kernel on an NHWC float32 CUDA map
-    ``x [H, W, 64]`` with the epilogue named in :data:`EPILOGUES`: ``(out,
-    pool)``.  ``out`` is ``[H, W, 64]``, or ``[2H, 2W, 64]`` for
-    ``"shuffle"``, which writes output group ``q`` (:data:`SHUFFLE`) of a
-    zeroed map; ``pool`` is the partial sums ``[grid, 2, 64]`` for
-    ``"pool"``, else None."""
+    ``x [H, W, 64]`` with the epilogue named in :data:`EPILOGUES`.
+
+    Given ``t [H, W, 64]``, pool sums ``ca_pool [parts, 64]`` and one
+    RCAB's :data:`CA_FLOATS` weights ``ca``, the loader forms the conv's
+    input ``x + s * t`` (``"apply"``; ``"apply_last"`` with the ``"skip"``
+    epilogue), ``s`` the RCAB's attention over the ``H x W`` pixels; with
+    ``grouped`` it reads ``x`` grouped, as it reads an RCAB's result.  The
+    maps are given and returned NHWC; those that RCAN keeps grouped
+    (:func:`to_grouped`) are converted around the launch.  Returns
+    ``{"out", "pool", "x", "s"}``: ``out`` is ``[H, W, 64]``, or ``[2H,
+    2W, 64]`` for ``"shuffle"``, which writes output group ``q``
+    (:data:`SHUFFLE`) of a zeroed map; ``pool`` the partial sums ``[grid,
+    2, 64]`` for ``"pool"``; ``x`` the input the loader formed and stored
+    (``"apply"``) and ``s`` the attention (64), else None."""
     h, wd, _ = x.shape
     plan = rcan_plan(h, wd, runtime.num_sms())
-    x = x.contiguous()
+    x = to_grouped(x) if grouped else x.contiguous()
     scale = SCALE if epilogue == "shuffle" else 1
     out = torch.zeros((scale * h, scale * wd, CHANNELS), dtype=torch.float32,
                       device=x.device)
     pool = torch.zeros((plan["grid"], POOL_PARTS, CHANNELS),
                        dtype=torch.float32, device=x.device) \
         if epilogue == "pool" else None
+    load = "plain"
+    xs = s = None
+    if t is not None:
+        load = "apply_last" if epilogue == "skip" else "apply"
+        t, ca_pool, ca = to_grouped(t), ca_pool.contiguous(), ca.contiguous()
+        s = torch.full((CHANNELS,), float("nan"), device=x.device)
+        if load == "apply":
+            xs = torch.full((h * wd * CHANNELS,), float("nan"),
+                            device=x.device)
     packed = pack_layer(w, b).to(x.device)
     skip = skip.contiguous() if skip is not None else None
+
+    def ptr(v):
+        return v.data_ptr() if v is not None else None
+
     dy, dx = SHUFFLE[q]
     with torch.cuda.device(x.device):
         runtime.check(runtime.library().rcan_conv3x3_f32(
-            EPILOGUES[epilogue], x.data_ptr(), out.data_ptr(),
-            packed.data_ptr(), skip.data_ptr() if skip is not None else None,
-            pool.data_ptr() if pool is not None else None, dy, dx, h, wd,
-            plan["grid"], plan["smem_bytes"], runtime.current_stream()),
-            "rcan_conv3x3_f32")
-    return out, pool
+            EPILOGUES[epilogue], LOADERS[load], x.data_ptr(), out.data_ptr(),
+            packed.data_ptr(), ptr(skip), ptr(pool), ptr(t), ptr(ca_pool),
+            ptr(ca), ptr(xs), ptr(s),
+            ca_pool.shape[0] if ca_pool is not None else 0, int(grouped), dy,
+            dx, h, wd, plan["grid"], plan["smem_bytes"],
+            runtime.current_stream()), "rcan_conv3x3_f32")
+    if xs is not None:
+        xs = from_grouped(xs, h, wd)
+    if pool is not None:
+        out = from_grouped(out.reshape(-1), h, wd)
+    return {"out": out, "pool": pool, "x": xs, "s": s}
+
+
+def to_grouped(x: torch.Tensor) -> torch.Tensor:
+    """NHWC ``[H, W, 64]`` -> the layout in which the pool epilogue stores
+    ``t`` and the apply loader an RCAB's result, flat: ``[8][H][W][8]``,
+    channels ``8q .. 8q + 7`` of every pixel together."""
+    h, w, c = x.shape
+    return x.reshape(h, w, c // 8, 8).permute(2, 0, 1, 3).contiguous() \
+        .reshape(-1)
+
+
+def from_grouped(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """:func:`to_grouped`'s inverse: NHWC ``[h, w, 64]``."""
+    return x.reshape(CHANNELS // 8, h, w, 8).permute(1, 2, 0, 3) \
+        .reshape(h, w, CHANNELS)

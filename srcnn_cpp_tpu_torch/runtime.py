@@ -48,7 +48,7 @@ _SIGNATURES = {
     "merge_ycrcb_bgr_u8": (_P, _P, _P, *(_I,) * 6, _LL, _P),
     "vdsr_y_u8": (_P, _LL, *(_P,) * 6, *(_I,) * 5, _P),
     "rcan_x2_u8": (_P, _LL, *(_P,) * 6, *(_I,) * 7, _P),
-    "rcan_conv3x3_f32": (_I, *(_P,) * 5, *(_I,) * 6, _P),
+    "rcan_conv3x3_f32": (_I, _I, *(_P,) * 10, *(_I,) * 8, _P),
 }
 
 

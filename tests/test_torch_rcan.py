@@ -407,13 +407,17 @@ def test_the_plan_mirrors_the_cuda_source():
 
     src, cuh = RCAN_CU.read_text(), CONV_CUH.read_text()
     assert _constant(src, "MAPS") == cr.MAPS
-    assert f'static_assert(CA_FLOATS == {cr.CA_FLOATS},' in src
+    assert f'static_assert(CA_FLOATS == {cr.CA_FLOATS},' in cuh
     assert _constant(cuh, "POOL_PARTS") == cr.POOL_PARTS == cv.CONSUMERS
     assert _constant(cuh, "CONV3X3_LAYER_FLOATS") == cv.LAYER_FLOATS
     assert f"CONV3X3_SMEM_BYTES = 211968 + 48;" in cuh
     assert cv.vdsr_smem_bytes() == 211968 + 48
     for name, value in cr.EPILOGUES.items():
         assert f"EPI_{name.upper()} = {value}" in cuh
+    for name, value in cr.LOADERS.items():
+        assert f"LOAD_{name.upper()} = {value}" in cuh
+    # the maps of launch_schedule: an RCAB's x in turn in xm and gout
+    assert "(blocks - 1 - k) % 2 == 0 ? xm : gout" in src
     # the upsampler's group q at (dy, dx) = (q / 2, q % 2)
     assert "EpiArgs shuffle{nullptr, nullptr, q / 2, q % 2};" in src
     assert cr.SHUFFLE == tuple((q // 2, q % 2) for q in range(4))
@@ -421,7 +425,11 @@ def test_the_plan_mirrors_the_cuda_source():
     assert plan["units"] == 540 * 15 and plan["grid"] == 132
     assert plan["smem_bytes"] == cv.vdsr_smem_bytes()
     px = 1080 * 1920
-    assert plan["workspace_floats"] == 10 * px * 64 + 132 * 2 * 64 + 64
+    # 6 maps, the upsampled one and the pool's sums; CA's s lives in the
+    # conv's shared memory
+    assert plan["workspace_floats"] == 10 * px * 64 + 132 * 2 * 64
+    # the pool sums a loader stages in its shared memory
+    assert plan["grid"] * cr.POOL_PARTS <= _constant(cuh, "CA_PARTS_MAX")
     assert cr.rcan_plan(3, 5, 132)["grid"] == 2
     assert len(cr.mid_order(10, 20)) == 411 + 4
 
@@ -453,6 +461,12 @@ def test_the_packed_buffers(small):
             middle[i * LAYER_FLOATS:(i + 1) * LAYER_FLOATS],
             pack_layer(w, b).numpy())
     assert ca.size == 4 * cr.CA_FLOATS
+    # W1 [4][64], b1, W2 [64][4], b2, as the loader's ca_finish reads them
+    cuh = CONV_CUH.read_text()
+    assert "CA_W1 = 0, CA_B1 = CA_HIDDEN * CONV3X3_C," in cuh
+    assert "CA_W2 = CA_B1 + CA_HIDDEN," in cuh
+    assert "CA_B2 = CA_W2 + CONV3X3_C * CA_HIDDEN," in cuh
+    assert _constant(cuh, "CA_HIDDEN") == 4
     third = ca[2 * cr.CA_FLOATS:3 * cr.CA_FLOATS]       # group 1, RCAB 0
     w1, b1 = small.pair("body.1.body.0.body.3.conv_du.0")
     w2, b2 = small.pair("body.1.body.0.body.3.conv_du.2")
@@ -462,6 +476,79 @@ def test_the_packed_buffers(small):
     # [RGB][ky, kx][ci]
     assert tail[(2 * 9 + 4) * 64 + 7] == w[2, 7, 1, 1]
     np.testing.assert_array_equal(tail[27 * 64:], [*b.numpy(), 0])
+
+
+def _run_schedule(groups, blocks):
+    """Interpret :func:`launch_schedule` on symbols: each map holds the
+    expression of what was written to it.  Returns the upsampler's input."""
+    from srcnn_cpp_tpu_torch.ops.cuda_rcan import launch_schedule
+
+    maps = {"frame": "frame"}
+    for kernel, epi, load, reads, writes in launch_schedule(groups, blocks):
+        assert not set(reads) & set(writes), (kernel, epi, load, reads)
+        got = [maps[m] for m in reads]
+        if kernel == "head":
+            maps["h"] = ("head", got[0])
+            continue
+        if kernel == "tail":
+            return maps["hr"]
+        if load == "plain":
+            x = got[0]
+        else:
+            x = ("apply", got[0], got[1], got[2])
+            if load == "apply":
+                maps[writes[1]] = x
+        if epi == "relu":
+            maps["a"] = ("relu", x)
+        elif epi == "pool":
+            maps["t"] = ("conv", x)
+            maps["pool"] = ("sums", maps["t"])
+        elif epi == "skip":
+            maps[writes[0]] = ("add", ("conv", x), got[-1])
+        else:
+            maps["hr"] = ("shuffle", x)
+
+
+@pytest.mark.parametrize("blocks", [1, 2, 3, 4, 5])
+def test_the_launch_schedule_computes_rcan(blocks):
+    """No launch writes a map it reads, and the maps carry RCAN's data
+    flow (``ops.rcan``) at odd and even depths."""
+    def want(groups):
+        h = ("head", "frame")
+        res = h
+        for _ in range(groups):
+            x = res
+            for _ in range(blocks):
+                t = ("conv", ("relu", x))
+                x = ("apply", x, t, ("sums", t))
+            res = ("add", ("conv", x), res)
+        return ("shuffle", ("add", ("conv", res), h))
+
+    assert _run_schedule(3, blocks) == want(3)
+
+
+def test_a_frame_is_417_kernels_at_the_published_depth():
+    from srcnn_cpp_tpu_torch.ops.cuda_rcan import launch_schedule
+
+    plan = launch_schedule(10, 20)
+    # head, 200 RCABs of 2 convs, 10 group convs, body, 4 upsampler, tail
+    assert len(plan) == 1 + 400 + 10 + 1 + 4 + 1 == 417
+    loads = [load for _, _, load, _, _ in plan]
+    assert loads.count("apply") == 10 * 19
+    assert loads.count("apply_last") == 10
+
+
+def test_the_cpu_path_folds_no_attention(small):
+    from srcnn_cpp_tpu_torch.ops.cuda_rcan import rcan_fused, rcan_plain
+
+    x = torch.from_numpy(_frames(1, 6, 8, 7)).permute(0, 3, 1, 2) \
+        .contiguous()
+    folded, launches = rcan_fused.ca_folded, rcan_fused.launches
+    calls = rcan_plain.calls
+    rcan_fused(x, small, (12, 16))
+    assert rcan_plain.calls == calls + 1
+    assert rcan_fused.ca_folded == folded
+    assert rcan_fused.launches == launches
 
 
 def test_one_cache_rule_for_the_packed_weights(small):
@@ -496,10 +583,11 @@ def test_cuda_rcan_fused_matches_its_plain_version(rcan, shape, seed):
     b, h, wd = shape
     x = torch.from_numpy(_frames(b, h, wd, seed)).cuda() \
         .permute(0, 3, 1, 2).contiguous()
-    launches = rcan_fused.launches
+    launches, folded = rcan_fused.launches, rcan_fused.ca_folded
     got = rcan_fused(x, w, (2 * h, 2 * wd))
     torch.cuda.synchronize()
     assert rcan_fused.launches == launches + 1
+    assert rcan_fused.ca_folded == folded + b * 10 * 20
     want = rcan_plain(x, w)
     mx, frac = _lsb(got.cpu(), want.cpu())
     print(f"{shape}: max {mx} LSB on {frac:.3e} of bytes")
@@ -564,8 +652,9 @@ def test_cuda_each_epilogue_against_f_conv2d(epilogue, hw):
         pytest.skip("needs a CUDA device")
     x, skip = _map(*hw, 10), _map(*hw, 11, relu=False)
     w, b = _layer(12)
-    out, pool = conv3x3_variant(x, w, b, epilogue,
-                                skip if epilogue == "skip" else None)
+    got = conv3x3_variant(x, w, b, epilogue,
+                          skip if epilogue == "skip" else None)
+    out, pool = got["out"], got["pool"]
     want = _conv_f64(x, w, b)
     if epilogue == "relu":
         want = want.clamp(min=0)
@@ -582,7 +671,7 @@ def test_cuda_each_epilogue_against_f_conv2d(epilogue, hw):
         sums = pool.double().sum((0, 1)).cpu()
         bound = 400 * 2.0 ** -24 * want.abs().sum((0, 1))
         assert ((sums - want.sum((0, 1))).abs() <= bound).all()
-        again = conv3x3_variant(x, w, b, "pool")[1]
+        again = conv3x3_variant(x, w, b, "pool")["pool"]
         assert torch.equal(pool, again)    # a fixed order: bit-equal
 
 
@@ -597,7 +686,7 @@ def test_cuda_the_shuffle_epilogue_against_pixel_shuffle():
     w, b = _layer(14, c_out=256)
     got = torch.zeros((2 * h, 2 * wd, 64), dtype=torch.float64)
     for q in range(4):
-        out, _ = conv3x3_variant(x, w[q::4], b[q::4], "shuffle", q=q)
+        out = conv3x3_variant(x, w[q::4], b[q::4], "shuffle", q=q)["out"]
         mask = torch.zeros((2 * h, 2 * wd), dtype=torch.bool)
         mask[q // 2::2, q % 2::2] = True
         assert not out.cpu()[~mask].any()      # only its (dy, dx) written
@@ -606,3 +695,99 @@ def test_cuda_the_shuffle_epilogue_against_pixel_shuffle():
                  b.double(), padding=1)
     want = F.pixel_shuffle(y, 2)[0].permute(1, 2, 0)
     torch.testing.assert_close(got, want, rtol=0, atol=4e-5)
+
+
+def _fma(a, b, c):
+    """fmaf on float32 tensors: the exact product, one rounding (float64
+    holds the product exactly)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _ca_scale(pool, ca, npx):
+    """CA's finish as the loader computes it: the pool slots summed in
+    order in float32, divided by the pixels, the 64->4->64 MLP by fmaf in
+    the kernel's order, exp on the card, sigmoid as 1 / (1 + e)."""
+    z = torch.zeros(64)
+    for p in pool.cpu():
+        z = z + p
+    z = z / torch.tensor(float(npx), dtype=torch.float32)
+    ca = ca.cpu()
+    w1, b1 = ca[:256].reshape(4, 64), ca[256:260]
+    w2, b2 = ca[260:516].reshape(64, 4), ca[516:580]
+    h = b1.clone()
+    for k in range(64):
+        h = _fma(w1[:, k], z[k].expand(4), h)
+    hid = h.clamp(min=0)
+    v = b2.clone()
+    for j in range(4):
+        v = _fma(w2[:, j], hid[j].expand(64), v)
+    e = torch.exp(-v.cuda()).cpu()
+    return torch.tensor(1.0) / (torch.tensor(1.0) + e)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grouped", [False, True])
+@pytest.mark.parametrize("epilogue", ["relu", "skip"])
+@pytest.mark.parametrize("hw", [(37, 300), (540, 960)])
+def test_cuda_the_apply_loader_against_f_conv2d(epilogue, hw, grouped):
+    """The loader's x = x_prev + s t: ``s`` bit-equal to CA's finish in
+    torch, the stored x bit-equal to torch's x_prev + t * s (``"apply"``
+    under the ReLU epilogue; ``"apply_last"`` under the skip add stores
+    none), the conv of it within the epilogue tests' bar, on frames whose
+    width is no multiple of 128 (and an odd height), x_prev NHWC (a
+    group's input) or grouped (an RCAB's result)."""
+    from srcnn_cpp_tpu_torch import runtime
+    from srcnn_cpp_tpu_torch.ops.cuda_rcan import (CA_FLOATS, POOL_PARTS,
+                                                   conv3x3_variant,
+                                                   rcan_plan)
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    h, wd = hw
+    x, t = _map(h, wd, 20), _map(h, wd, 21, relu=False) * 0.5
+    skip = _map(h, wd, 22, relu=False)
+    g = torch.Generator().manual_seed(23)
+    parts = rcan_plan(h, wd, runtime.num_sms())["grid"] * POOL_PARTS
+    pool = (torch.randn((parts, 64), generator=g) * 50).cuda()
+    ca = (torch.randn(CA_FLOATS, generator=g) * 0.3).cuda()
+    w, b = _layer(24)
+    got = conv3x3_variant(x, w, b, epilogue,
+                          skip if epilogue == "skip" else None, t=t,
+                          ca_pool=pool, ca=ca, grouped=grouped)
+    s = _ca_scale(pool, ca, h * wd)
+    assert torch.equal(got["s"].cpu(), s), (got["s"].cpu() - s).abs().max()
+    applied = x.cpu() + t.cpu() * s
+    if epilogue == "relu":
+        assert torch.equal(got["x"].cpu(), applied)
+    else:
+        assert got["x"] is None
+    want = _conv_f64(applied, w, b)
+    want = want.clamp(min=0) if epilogue == "relu" \
+        else want + skip.double().cpu()
+    torch.testing.assert_close(got["out"].double().cpu(), want, rtol=0,
+                               atol=4e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("blocks", [1, 2, 3])
+def test_cuda_rcan_fused_at_each_buffer_turn(tmp_path, blocks):
+    """2 groups of 1, 2 or 3 RCABs: an RCAB's x goes to either map, the
+    last conv reads the group's input (1) or either map."""
+    from srcnn_cpp_tpu_torch.ops.cuda_rcan import rcan_fused, rcan_plain
+    from srcnn_cpp_tpu_torch.weights import load_rcan_weights
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    mk = _make()
+    path = tmp_path / f"rcan_2x{blocks}.jsonl"
+    mk.write(path, mk.recipe(groups=2, blocks=blocks))
+    w = load_rcan_weights(path, device="cuda")
+    x = torch.from_numpy(_frames(2, 37, 300, blocks)).cuda() \
+        .permute(0, 3, 1, 2).contiguous()
+    folded = rcan_fused.ca_folded
+    got = rcan_fused(x, w, (74, 600))
+    torch.cuda.synchronize()
+    assert rcan_fused.ca_folded == folded + 2 * 2 * blocks
+    mx, frac = _lsb(got.cpu(), rcan_plain(x, w).cpu())
+    print(f"blocks {blocks}: max {mx} LSB on {frac:.3e} of bytes")
+    assert mx <= 1 and frac < 1e-2, (mx, frac)
