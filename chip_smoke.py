@@ -91,6 +91,15 @@ read just after:
   call holds 417 RCAN kernels a frame and none named ``rcan_ca_*``
   (channel attention runs in the convs' loaders); the share off, ms a
   frame and the kernels a call, beside the plain path and its bound.
+* phase 27, SwinIR x2 ``swinir_fused`` (6 RSTBs of 6 Swin transformer
+  layers at 180 channels, the GEMM body's LayerNorm loaders and epilogues,
+  the window attention, RCAN's upsampler and tail) at its cell's frame
+  size, 2 frames of 1080x1920 -> 2160x3840 with the seeded weights of
+  ``portbench/configs/swinir_x2_seeded.jsonl``: ``upscale_planar``
+  launches it once and K2, K1, K3 never; each frame within 1 LSB of the
+  fp32 path (TF32 off) on under 0.5 % of bytes; a trace of one call holds
+  194 kernels a frame, 180 of them named ``swin_stl_*``; ms a frame
+  beside the plain path and its bound.
 
 Each phase from 7 on prints its wall time.
 
@@ -121,6 +130,7 @@ import torch
 ROOT = Path(__file__).resolve().parent
 VDSR_NPZ = ROOT / "portbench/configs/vdsr20_seeded.npz"
 RCAN_RECIPE = ROOT / "portbench/configs/rcan_x2_seeded.jsonl"
+SWINIR_RECIPE = ROOT / "portbench/configs/swinir_x2_seeded.jsonl"
 SEED = 0
 # x2 main-path geometry: 4 frames of 540x960 -> 1080x1920
 BATCH, IH, IW, SCALE = 4, 540, 960, 2.0
@@ -508,6 +518,7 @@ def main() -> int:
     timed(phase_process_srcnn, extra)
     timed(phase_vdsr, extra, launches, max_err, ms, plain_ms, bounds)
     timed(phase_rcan, extra, launches, max_err, ms, plain_ms, bounds)
+    timed(phase_swinir, extra, launches, max_err, ms, plain_ms, bounds)
 
     replaces = {
         "pre_upscale_fused": ("srcnn_cpp_tpu_torch/csrc/pre_pass.cu",
@@ -523,6 +534,7 @@ def main() -> int:
         # the JAX package runs SRCNN only
         "vdsr_y_fused": ("srcnn_cpp_tpu_torch/csrc/vdsr_conv.cu", None),
         "rcan_fused": ("srcnn_cpp_tpu_torch/csrc/rcan.cu", None),
+        "swinir_fused": ("srcnn_cpp_tpu_torch/csrc/swinir.cu", None),
     }
     # library_ms: no single PyTorch call computes any of these functions
     kernels = [{"name": n, "route": "cuda", "source": src, "replaces": rep,
@@ -588,7 +600,7 @@ class Extra:
     def __init__(self, gpu, weights, x, up):
         from srcnn_cpp_tpu_torch.ops import (cuda_merge, cuda_rcan,
                                              cuda_resize, cuda_srcnn,
-                                             cuda_vdsr)
+                                             cuda_swinir, cuda_vdsr)
 
         self.gpu, self.weights, self.x, self.up = gpu, weights, x, up
         self.wrappers = (cuda_resize.pre_upscale_fused,
@@ -596,11 +608,12 @@ class Extra:
                          cuda_merge.merge_ycrcb_to_bgr_fused,
                          cuda_srcnn.srcnn_merge_fused,
                          cuda_srcnn.srcnn_y_f32_fused,
-                         cuda_vdsr.vdsr_y_fused, cuda_rcan.rcan_fused)
+                         cuda_vdsr.vdsr_y_fused, cuda_rcan.rcan_fused,
+                         cuda_swinir.swinir_fused)
         self.plains = (cuda_resize.pre_upscale_plain, cuda_srcnn.srcnn_y_plain,
                        cuda_merge.merge_plain, cuda_srcnn.srcnn_merge_plain,
                        cuda_srcnn.srcnn_y_f32_plain, cuda_vdsr.vdsr_y_plain,
-                       cuda_rcan.rcan_plain)
+                       cuda_rcan.rcan_plain, cuda_swinir.swinir_plain)
         self.rng = np.random.default_rng(SEED + 1)
         self.y4k = None
 
@@ -1769,9 +1782,9 @@ def phase_vdsr(e: Extra, launches: dict, max_err: dict, ms: dict,
         f"({e.gpu})")
 
 
-def rcan_kernels(fn) -> list[str]:
-    """The names of the kernels named ``rcan_*`` in a
-    ``utils.profiling.trace`` of ``fn()``."""
+def kernels_named(fn, part: str) -> list[str]:
+    """The names of the kernels of a ``utils.profiling.trace`` of ``fn()``
+    whose name holds ``part``, in the order they started."""
     import tempfile
 
     from srcnn_cpp_tpu_torch.utils.profiling import trace
@@ -1780,8 +1793,9 @@ def rcan_kernels(fn) -> list[str]:
         with trace(tmp) as logdir:
             fn()
         events = json.loads((Path(logdir) / "trace.json").read_text())
-    return [ev["name"] for ev in events["traceEvents"]
-            if ev.get("cat") == "kernel" and "rcan_" in ev.get("name", "")]
+    found = [ev for ev in events["traceEvents"]
+             if ev.get("cat") == "kernel" and part in ev.get("name", "")]
+    return [ev["name"] for ev in sorted(found, key=lambda e: float(e["ts"]))]
 
 
 def phase_rcan(e: Extra, launches: dict, max_err: dict, ms: dict,
@@ -1824,7 +1838,7 @@ def phase_rcan(e: Extra, launches: dict, max_err: dict, ms: dict,
     max_err["rcan_fused"] = err
     g, k = weights.groups, weights.blocks
     kernels = b * len(launch_schedule(g, k))
-    traced = rcan_kernels(lambda: rcan_fused(x, weights, (oh, ow)))
+    traced = kernels_named(lambda: rcan_fused(x, weights, (oh, ow)), "rcan_")
     ca = sorted({n for n in traced if "rcan_ca_" in n})
     say(f"  trace of one call: {len(traced)} RCAN kernels ({kernels} "
         f"planned, {kernels // b} a frame), CA kernels {ca or 'none'}")
@@ -1849,6 +1863,96 @@ def phase_rcan(e: Extra, launches: dict, max_err: dict, ms: dict,
                          TF32_FLOPS)
     plan = rcan_plan(h, w, torch.cuda.get_device_properties(0)
                      .multi_processor_count)
+    say(f"  {name}: {ms[name]:.2f} ms, plain {plain_ms[name]:.2f} ms, bound "
+        f"{bounds[name][0]:.2f} ms ({bounds[name][1]}); a frame "
+        f"{ms[name] / b:.2f} ms against {bounds[name][0] / b:.2f}; "
+        f"{2 * macs * npix / (ms[name] * 1e-3) / 1e12:.1f} TFLOP/s of "
+        f"{TF32_FLOPS / 1e12:.0f} (dense TF32), {macs} MACs an output "
+        f"pixel; max {err} LSB, share off {off:.3e} at most a frame; 1 C "
+        f"call, {kernels} kernels a call; workspace "
+        f"{4 * plan['workspace_floats'] / 1e9:.2f} GB ({e.gpu})")
+
+
+
+def phase_swinir(e: Extra, launches: dict, max_err: dict, ms: dict,
+                 plain_ms: dict, bounds: dict) -> None:
+    """SwinIR x2 at the frame size of the benchmark's SwinIR cell: a batch
+    of 2 frames of 1080x1920 through ``upscale_planar`` at x2."""
+    from srcnn_cpp_tpu_torch.ops.cuda_swinir import (launch_schedule,
+                                                     swinir_fused,
+                                                     swinir_plain,
+                                                     swinir_plan)
+    from srcnn_cpp_tpu_torch.pipeline import upscale_planar
+    from srcnn_cpp_tpu_torch.weights import load_swinir_weights
+
+    b, h, w = 2, 1080, 1920
+    oh, ow = 2 * h, 2 * w
+    say(f"phase 27: SwinIR swinir_fused vs swinir_plain (TF32 off), "
+        f"upscale_planar on [{b},3,{h},{w}] -> [{b},3,{oh},{ow}]")
+    weights = load_swinir_weights(SWINIR_RECIPE, device="cuda")
+    from portbench.frames import make
+
+    x = make(SEED + 27, b, (h, w), "cuda").permute(0, 3, 1, 2).contiguous()
+    out, got = e.drive("upscale_planar with SwinIR weights",
+                       lambda: upscale_planar(x, weights, (oh, ow)),
+                       ("swinir_fused",))
+    if got["swinir_fused"] != 1 or got["pre_upscale_fused"] \
+            or got["srcnn_y_fused"] or got["merge_ycrcb_to_bgr_fused"]:
+        raise AssertionError("upscale_planar did not run SwinIR once and "
+                             "K2, K1, K3 never")
+    launches["swinir_fused"] = got["swinir_fused"]
+    err, off = 0, 0
+    for i in range(b):
+        d = diff(out[i], swinir_plain(x[i:i + 1], weights)[0])
+        mx, frac = int(d.max()), float((d > 0).float().mean())
+        say(f"  frame {i} of {b} [3,{oh},{ow}]: max {mx} LSB, differing "
+            f"fraction {frac:.3e}")
+        if mx > 1 or frac >= K1_FRAC:
+            raise AssertionError(f"SwinIR frame {i}: max {mx}, frac {frac}")
+        err, off = max(err, mx), max(off, frac)
+    max_err["swinir_fused"] = err
+    kernels = b * len(launch_schedule(weights.groups, weights.depth))
+    # the launches of a call do not depend on the frame size: counted on 2
+    # frames of 64x96.  In this process CUPTI lost the first 2 kernels of a
+    # traced call (5 at 1080p) after the lead-in, in every trace, so the
+    # trace holds two calls, and the second one's kernels, in time order,
+    # must be the plan's
+    small = x[:, :, :64, :96].contiguous()
+    sched = [k for k, _ in launch_schedule(weights.groups, weights.depth)] * b
+
+    def two_calls():
+        swinir_fused(small, weights, (128, 192))
+        torch.cuda.synchronize()
+        swinir_fused(small, weights, (128, 192))
+
+    traced = kernels_named(two_calls, "_kernel")
+    last = traced[-kernels:]
+    stl = sum("swin_stl_" in n for n in last)
+    say(f"  trace of two calls of 2 frames of 64x96: {len(traced)} kernels "
+        f"({2 * kernels} planned, {kernels // b} a frame), the second "
+        f"call's {stl} named swin_stl_*")
+    if len(traced) > 2 * kernels or len(last) != kernels or not all(
+            k in n for k, n in zip(sched, last)):
+        raise AssertionError(f"SwinIR's second call ran {len(last)} "
+                             f"kernels, not the {kernels} planned in order")
+
+    def plain():
+        for i in range(b):
+            swinir_plain(x[i:i + 1], weights)
+
+    name = "swinir_fused"
+    ms[name], plain_ms[name] = ab_ms(
+        lambda: swinir_fused(x, weights, (oh, ow)), plain, 1)
+    npix = b * oh * ow
+    from portbench.reference.swinir import macs_per_pixel
+
+    macs = macs_per_pixel({k: tuple(v.shape)
+                           for k, v in weights.as_dict().items()})
+    # bytes: BGR in, BGR out; operations: the network's MACs at dense TF32
+    bounds[name] = bound(3.0 * b * h * w + 3.0 * npix, 2.0 * macs * npix,
+                         TF32_FLOPS)
+    plan = swinir_plan(h, w, torch.cuda.get_device_properties(0)
+                       .multi_processor_count)
     say(f"  {name}: {ms[name]:.2f} ms, plain {plain_ms[name]:.2f} ms, bound "
         f"{bounds[name][0]:.2f} ms ({bounds[name][1]}); a frame "
         f"{ms[name] / b:.2f} ms against {bounds[name][0] / b:.2f}; "

@@ -14,8 +14,9 @@ Public surface:
 * :func:`load_weights` — the pretrained SRCNN 9-5-5 checkpoint as tensors
   (:class:`SRCNNWeights`); :func:`load_vdsr_weights` — a 20-layer VDSR
   checkpoint (:class:`VDSRWeights`), :func:`load_rcan_weights` — an RCAN
-  x2 checkpoint or seeded recipe (:class:`RCANWeights`), which the same
-  entry points run;
+  x2 checkpoint or seeded recipe (:class:`RCANWeights`),
+  :func:`load_swinir_weights` — a SwinIR-M x2 checkpoint or seeded recipe
+  (:class:`SwinIRWeights`), which the same entry points run;
 * :class:`SRCNN` — the model family as a ``torch.nn.Module`` (:mod:`.models`);
 * :func:`evaluate_image` — the Resize.m evaluation protocol
   (:mod:`.evaluate`, ``python -m srcnn_cpp_tpu_torch.evaluate``);
@@ -37,7 +38,8 @@ def __getattr__(name):
 
         return getattr(pipeline, name)
     if name in ("load_weights", "SRCNNWeights", "load_vdsr_weights",
-                "VDSRWeights", "load_rcan_weights", "RCANWeights"):
+                "VDSRWeights", "load_rcan_weights", "RCANWeights",
+                "load_swinir_weights", "SwinIRWeights"):
         from . import weights
 
         return getattr(weights, name)

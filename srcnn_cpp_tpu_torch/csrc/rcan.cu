@@ -28,6 +28,10 @@
 //   rcan_tail_kernel        conv 64->3 at the output size, + 255 mean,
 //                           clamp, round, planar BGR u8 (SIMT).
 // 417 kernels a frame at the published shapes (10 groups of 20 RCABs).
+// SwinIR's launcher (swinir.cu) runs two of this file's kernels through
+// swinir_head and rcan_tail below: swinir_head_kernel, the head conv at
+// SwinIR's width (head_conv, which RCAN's head runs at 64) with the patch
+// LayerNorm, and rcan_tail_kernel on its upsampled map.
 //
 // What bounds it on the H100: the 411 64->64 layers (36,864 MACs and 512
 // bytes a pixel each, near the card's ridge; 3xTF32 makes the tensor cores
@@ -75,8 +79,50 @@ __device__ __forceinline__ float rgb_mean(int c) {
 // major), a warp two at a time: lane l takes pixel l / 16 of the pair and
 // feature channels 4 (l % 16) .. + 3, as vdsr_conv.cu's conv1 and conv20.
 
-// conv 3->64 of RGB - 255 mean, zero outside the frame.  bgr: 3 u8 planes
-// of H x W, B first; w: [27 taps][64] then 64 biases.
+// conv 3->CO of RGB - 255 mean, zero outside the frame, at pixel p: the
+// CO / 4 channel quads of the half-warp's 16 lanes, lane g holding quads
+// g, g + 16, ... (RCAN: CO 64, one quad a lane; SwinIR: CO 184, up to
+// three).  bgr: 3 u8 planes of H x W, B first; ws: [27 taps][CO / 4]
+// float4 in shared memory; b: the CO biases.
+template <int CO>
+__device__ __forceinline__ void head_conv(const uint8_t* __restrict__ bgr,
+                                          const float4* ws,
+                                          const float* __restrict__ b,
+                                          long long p, long long px, int H,
+                                          int W, int g,
+                                          float4 (&a)[(CO / 4 + 15) / 16]) {
+  constexpr int Q = CO / 4, K = (Q + 15) / 16;
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+    if (g + 16 * k < Q)
+      a[k] = __ldg(reinterpret_cast<const float4*>(b) + g + 16 * k);
+  const int py = (int)(p / W), pxl = (int)(p - (long long)py * W);
+#pragma unroll
+  for (int ci = 0; ci < 3; ++ci) {
+    const uint8_t* plane = bgr + (size_t)(2 - ci) * px;   // R is plane 2
+    const float m = rgb_mean(ci);
+#pragma unroll
+    for (int t = 0; t < 9; ++t) {
+      const int gy = py + t / 3 - 1, gx = pxl + t % 3 - 1;
+      const float x = (gy >= 0 && gy < H && gx >= 0 && gx < W)
+                          ? __fsub_rn((float)__ldg(plane + (size_t)gy * W +
+                                                   gx), m)
+                          : 0.f;
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        if (g + 16 * k >= Q) continue;
+        const float4 wk = ws[(ci * 9 + t) * Q + g + 16 * k];
+        a[k].x = fmaf(wk.x, x, a[k].x);
+        a[k].y = fmaf(wk.y, x, a[k].y);
+        a[k].z = fmaf(wk.z, x, a[k].z);
+        a[k].w = fmaf(wk.w, x, a[k].w);
+      }
+    }
+  }
+}
+
+// RCAN's head: conv 3->64 of RGB - 255 mean.  w: [27 taps][64] then 64
+// biases.
 __global__ void __launch_bounds__(EDGE_THREADS)
 rcan_head_kernel(const uint8_t* __restrict__ bgr, const float* __restrict__ w,
                  float* __restrict__ out, int H, int W) {
@@ -85,35 +131,99 @@ rcan_head_kernel(const uint8_t* __restrict__ bgr, const float* __restrict__ w,
     ws[i] = __ldg(reinterpret_cast<const float4*>(w) + i);
   __syncthreads();
   const int lane = threadIdx.x & 31, g = lane & 15;
-  const float4 b = __ldg(reinterpret_cast<const float4*>(w + HEAD_TAPS * C) +
-                         g);
   const long long px = (long long)H * W;
   const long long p0 = (long long)blockIdx.x * EDGE_PX +
                        (threadIdx.x >> 5) * 2 * PAIRS + (lane >> 4);
   for (int i = 0; i < PAIRS; ++i) {
     const long long p = p0 + 2 * i;
     if (p >= px) break;
-    const int py = (int)(p / W), pxl = (int)(p - (long long)py * W);
-    float4 a = b;
+    float4 a[1];
+    head_conv<C>(bgr, ws, w + HEAD_TAPS * C, p, px, H, W, g, a);
+    *reinterpret_cast<float4*>(out + p * C + 4 * g) = a[0];
+  }
+}
+
+// SwinIR's head: conv_first 3->180 of RGB / 255 - mean, as conv 3->180 of
+// RGB - 255 mean with the weights over 255, into f0 ([H][W][184], the pad
+// channels zero), the patch LayerNorm of f0 into normed (eps 1e-5, over
+// the 180 channels, two passes), and normed's own statistics (mean, 1 /
+// sqrt(var + eps)) into stats, for the first STL's LN1.  w: [27 taps][184],
+// 184 biases, 184 gains, 184 biases of the LayerNorm (zero at the pads).
+constexpr int SW_CP = 184, SW_DIM = 180, SW_Q = SW_CP / 4;
+
+// LayerNorm's statistics (mean, 1 / sqrt(var + eps), eps 1e-5, over the
+// 180 channels, two passes) of the token whose quads the half-warp's 16
+// lanes hold in a (the pads zero, and left out of the squares).
+__device__ __forceinline__ float2 half_warp_stats(const float4 (&a)[3],
+                                                  int g) {
+  float s = 0.f;
 #pragma unroll
-    for (int ci = 0; ci < 3; ++ci) {
-      const uint8_t* plane = bgr + (size_t)(2 - ci) * px;   // R is plane 2
-      const float m = rgb_mean(ci);
+  for (int k = 0; k < 3; ++k)
+    if (g + 16 * k < SW_Q) s += a[k].x + a[k].y + a[k].z + a[k].w;
 #pragma unroll
-      for (int k = 0; k < 9; ++k) {
-        const int gy = py + k / 3 - 1, gx = pxl + k % 3 - 1;
-        const float x = (gy >= 0 && gy < H && gx >= 0 && gx < W)
-                            ? __fsub_rn((float)__ldg(plane + (size_t)gy * W +
-                                                     gx), m)
-                            : 0.f;
-        const float4 wk = ws[(ci * 9 + k) * (C / 4) + g];
-        a.x = fmaf(wk.x, x, a.x);
-        a.y = fmaf(wk.y, x, a.y);
-        a.z = fmaf(wk.z, x, a.z);
-        a.w = fmaf(wk.w, x, a.w);
-      }
+  for (int m = 8; m > 0; m >>= 1) s += __shfl_xor_sync(0xFFFFFFFFu, s, m);
+  const float mean = s / SW_DIM;
+  float q = 0.f;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    if (4 * (g + 16 * k) >= SW_DIM) continue;
+    const float dx = a[k].x - mean, dy = a[k].y - mean, dz = a[k].z - mean,
+                dw = a[k].w - mean;
+    q += dx * dx + dy * dy + dz * dz + dw * dw;
+  }
+#pragma unroll
+  for (int m = 8; m > 0; m >>= 1) q += __shfl_xor_sync(0xFFFFFFFFu, q, m);
+  return make_float2(mean, 1.f / sqrtf(q / SW_DIM + 1e-5f));
+}
+
+__global__ void __launch_bounds__(EDGE_THREADS)
+swinir_head_kernel(const uint8_t* __restrict__ bgr,
+                   const float* __restrict__ w, float* __restrict__ f0,
+                   float* __restrict__ normed, float2* __restrict__ stats,
+                   int H, int W) {
+  __shared__ float4 ws[HEAD_TAPS * SW_Q];
+  for (int i = threadIdx.x; i < HEAD_TAPS * SW_Q; i += blockDim.x)
+    ws[i] = __ldg(reinterpret_cast<const float4*>(w) + i);
+  __syncthreads();
+  const float* bias = w + HEAD_TAPS * SW_CP;
+  const float4* gain = reinterpret_cast<const float4*>(bias + SW_CP);
+  const float4* shift = gain + SW_Q;
+  const int lane = threadIdx.x & 31, g = lane & 15;
+  constexpr int K = (SW_Q + 15) / 16;
+  const long long px = (long long)H * W;
+  const long long p0 = (long long)blockIdx.x * EDGE_PX +
+                       (threadIdx.x >> 5) * 2 * PAIRS + (lane >> 4);
+  for (int i = 0; i < PAIRS; ++i) {
+    const long long p = p0 + 2 * i;
+    if (p - (lane >> 4) >= px) break;       // the pair's first pixel
+    const bool ok = p < px;
+    float4 a[K] = {};
+    if (ok) head_conv<SW_CP>(bgr, ws, bias, p, px, H, W, g, a);
+    if (ok) {
+#pragma unroll
+      for (int k = 0; k < K; ++k)
+        if (g + 16 * k < SW_Q)
+          reinterpret_cast<float4*>(f0 + p * SW_CP)[g + 16 * k] = a[k];
     }
-    *reinterpret_cast<float4*>(out + p * C + 4 * g) = a;
+    // the patch LayerNorm, then normed's statistics for LN1
+    float2 st = half_warp_stats(a, g);
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int c4 = g + 16 * k;
+      if (c4 >= SW_Q) continue;
+      const float4 gm = __ldg(gain + c4), bt = __ldg(shift + c4);
+      a[k] = make_float4((a[k].x - st.x) * st.y * gm.x + bt.x,
+                         (a[k].y - st.x) * st.y * gm.y + bt.y,
+                         (a[k].z - st.x) * st.y * gm.z + bt.z,
+                         (a[k].w - st.x) * st.y * gm.w + bt.w);
+    }
+    st = half_warp_stats(a, g);
+    if (!ok) continue;
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+      if (g + 16 * k < SW_Q)
+        reinterpret_cast<float4*>(normed + p * SW_CP)[g + 16 * k] = a[k];
+    if (g == 0) stats[p] = st;
   }
 }
 
@@ -174,6 +284,27 @@ rcan_tail_kernel(const float* __restrict__ act, const float* __restrict__ w,
 int edge_blocks(long long px) { return (int)((px + EDGE_PX - 1) / EDGE_PX); }
 
 }  // namespace
+
+namespace srcnn_hopper {
+
+// SwinIR's launcher (swinir.cu) runs these two: its head, and RCAN's tail
+// on its upsampled map.
+cudaError_t swinir_head(const uint8_t* bgr, const float* w, float* f0,
+                        float* normed, float2* stats, int H, int W,
+                        cudaStream_t s) {
+  swinir_head_kernel<<<edge_blocks((long long)H * W), EDGE_THREADS, 0, s>>>(
+      bgr, w, f0, normed, stats, H, W);
+  return cudaGetLastError();
+}
+
+cudaError_t rcan_tail(const float* hr, const float* w, uint8_t* out, int H,
+                      int W, cudaStream_t s) {
+  rcan_tail_kernel<<<edge_blocks((long long)H * W), EDGE_THREADS, 0, s>>>(
+      hr, w, out, H, W);
+  return cudaGetLastError();
+}
+
+}  // namespace srcnn_hopper
 
 // bgr: B frames of 3 u8 planes (B, G, R) of H x W, frame b at bgr + b *
 // frame_stride; out: B x 3 x 2H x 2W u8, planar BGR.  w_head: [27][64] +

@@ -12,20 +12,23 @@ the VDSR chain (``vdsr_y_fused``, on the same 4 upscaled Y planes with
 ``portbench/configs/vdsr20_seeded.npz``: the 64->64 conv that RCAN
 shares), RCAN x2 (``rcan_fused`` on the same 4 BGR frames with
 ``portbench/configs/rcan_x2_seeded.jsonl``, fewer repetitions: a call
-takes ~0.66 s) and the device-resident pipeline (``upscale_planar``) of
-both, and K3 on 4 seeded [1079,1921] planes (H*W % 16 != 0), in turns (parent, change,
+takes ~0.66 s), SwinIR x2 (``swinir_fused`` on the same frames with
+``portbench/configs/swinir_x2_seeded.jsonl``, fewer repetitions, where
+both trees have it) and the device-resident pipeline (``upscale_planar``)
+of both, and K3 on 4 seeded [1079,1921] planes (H*W % 16 != 0), in turns (parent, change,
 change, parent) for ``--rounds`` rounds; K2 and both K3 cases also from
 CUDA graph replays; the host-array entry (``upscale_bgr_batch`` on the
 same frames as a host array, host clock per call).  Before timing it
-checks that both give the same K2, K3 and RCAN outputs, K1 and VDSR outputs
-within 1 LSB of each other (it prints their largest difference) and
+checks that both give the same K2, K3, RCAN and SwinIR outputs, K1 and VDSR
+outputs within 1 LSB of each other (it prints their largest difference) and
 host-array outputs within 2 LSB, and it profiles
 20 calls of each pipeline and of the odd-plane K3 (``torch.profiler``:
 device time by kernel, busy share of the span), and prints K2's static
-SASS instruction counts of both builds and whether the shared 64->64
-conv's plain-loader instances (``vdsr_conv3x3_kernel``, RCAN's
-``rcan_conv3x3_kernel`` of each epilogue) compiled to the same SASS in
-both (``cuobjdump``, where it runs).
+SASS instruction counts of both builds and whether the shared conv
+bodies' instances (``vdsr_conv3x3_kernel``, RCAN's ``rcan_conv3x3_kernel``
+of each epilogue and loader, SwinIR's ``swin_stl_*`` and
+``swinir_conv3x3_kernel``) compiled to the same SASS in both
+(``cuobjdump``, where it runs).
 Prints one line per round
 and a JSON summary (medians over the rounds, the profiles, the card's name
 and power limit), also written to ``--out``.  Needs a CUDA card.
@@ -52,6 +55,9 @@ _ALIAS = "srcnn_ab_parent"
 VDSR_NPZ = Path(__file__).resolve().parent.parent / \
     "portbench/configs/vdsr20_seeded.npz"
 RCAN_RECIPE = VDSR_NPZ.with_name("rcan_x2_seeded.jsonl")
+SWINIR_RECIPE = VDSR_NPZ.with_name("swinir_x2_seeded.jsonl")
+#: timed with fewer repetitions: a call takes a large part of a second
+SLOW = ("rcan_fused", "swinir_fused")
 
 
 def load_checkout(root: Path, alias: str = _ALIAS):
@@ -211,18 +217,24 @@ def sass_counts(lib: Path, kernel: str,
     return counts
 
 
-def plain_conv_sass(code: dict) -> dict[str, list[str]]:
-    """The 64->64 conv's plain-loader instances in :func:`sass_code`:
-    ``vdsr_conv3x3_kernel`` and ``rcan_conv3x3_kernel<e>`` of each epilogue
-    ``e`` (mangled ``...ILi<e>EE`` before the loader became a template
-    parameter, ``...ILi<e>ELi0EE`` after)."""
+def conv_sass(code: dict) -> dict[str, list[str]]:
+    """The shared conv bodies' instances in :func:`sass_code`:
+    ``vdsr_conv3x3_kernel``; ``rcan_conv3x3_kernel<e, l>`` of each epilogue
+    ``e`` and loader ``l`` (mangled ``...ILi<e>ELi<l>EE``, or ``...ILi<e>EE``
+    before the loader became a template parameter, read as ``l`` 0); and
+    SwinIR's ``swin_stl_linear_kernel<l, e>``, ``swinir_conv3x3_kernel<n,
+    e>`` and ``swin_stl_attention_kernel``."""
     out = {}
     for name, body in code.items():
         if "vdsr_conv3x3_kernel" in name:
             out["vdsr_conv3x3_kernel"] = body
-        m = re.search(r"rcan_conv3x3_kernelILi(\d+)E(?:Li(\d+)E)?E", name)
-        if m and m.group(2) in (None, "0"):
-            out[f"rcan_conv3x3_kernel<{m.group(1)}>"] = body
+        if "swin_stl_attention_kernel" in name:
+            out["swin_stl_attention_kernel"] = body
+        m = re.search(r"(rcan_conv3x3|swin_stl_linear|swinir_conv3x3)_kernel"
+                      r"ILi(\d+)E(?:Li(\d+)E)?E", name)
+        if m:
+            out[f"{m.group(1)}_kernel<{m.group(2)}, "
+                f"{m.group(3) or 0}>"] = body
     return out
 
 
@@ -255,6 +267,10 @@ def main(argv=None) -> int:
              ("runtime", "pipeline", "weights", "ops.cuda_srcnn",
               "ops.cuda_resize", "ops.cuda_merge", "ops.cuda_vdsr",
               "ops.cuda_rcan")}
+        # SwinIR, where the tree has it
+        swinir = importlib.util.find_spec(f"{name}.ops.cuda_swinir")
+        m["ops.cuda_swinir"] = importlib.import_module(
+            f"{name}.ops.cuda_swinir") if swinir is not None else None
         path, secs, _ = m["runtime"].build()
         m["runtime"].library()
         code[tag] = sass_code(path)
@@ -263,16 +279,18 @@ def main(argv=None) -> int:
               flush=True)
         sides[tag] = m
     if code["parent"] is None or code["change"] is None:
-        print("SASS of the 64->64 conv: not read (no cuobjdump)", flush=True)
+        print("SASS of the conv bodies: not read (no cuobjdump)", flush=True)
     else:
-        convs = {tag: plain_conv_sass(c) for tag, c in code.items()}
-        for kernel, body in sorted(convs["parent"].items()):
+        convs = {tag: conv_sass(c) for tag, c in code.items()}
+        for kernel in sorted(convs["parent"].keys() | convs["change"].keys()):
+            body = convs["parent"].get(kernel)
             other = convs["change"].get(kernel)
-            verdict = ("identical" if other == body else "absent"
-                       if other is None else "DIFFERS")
-            print(f"SASS {kernel}: {verdict} ({len(body)} instructions in "
-                  f"the parent, {len(other or [])} in the change)",
-                  flush=True)
+            verdict = ("new in the change" if body is None else "absent"
+                       if other is None else "identical" if other == body
+                       else "DIFFERS")
+            print(f"SASS {kernel}: {verdict} ({len(body or [])} "
+                  f"instructions in the parent, {len(other or [])} in the "
+                  f"change)", flush=True)
 
     rng = np.random.default_rng(0)
     x = torch.from_numpy(rng.integers(0, 256, (4, 3, 540, 960),
@@ -315,13 +333,23 @@ def main(argv=None) -> int:
             host: (lambda m=m, w=w:
                    m["pipeline"].upscale_bgr_batch(frames, 2.0, w, "cuda")),
         }
+        if all(side["ops.cuda_swinir"] is not None
+               for side in sides.values()):
+            swin = m["ops.cuda_swinir"].swinir_fused
+            ws = m["weights"].load_swinir_weights(SWINIR_RECIPE,
+                                                  device="cuda")
+            fns[tag]["swinir_fused"] = (lambda f=swin, w=ws: f(x, w, hw))
+    if "swinir_fused" not in fns["change"]:
+        print("swinir_fused: not compared (the parent has no SwinIR)",
+              flush=True)
     if not torch.equal(ups["parent"], ups["change"]):
         raise AssertionError("K2 outputs differ between the two trees")
-    for name in ("merge_ycrcb_to_bgr_fused", k3_odd, "rcan_fused"):
+    equal = [n for n in ("merge_ycrcb_to_bgr_fused", k3_odd, "rcan_fused",
+                         "swinir_fused") if n in fns["change"]]
+    for name in equal:
         if not torch.equal(fns["parent"][name](), fns["change"][name]()):
             raise AssertionError(f"{name}: outputs differ between the trees")
-    print("K3, K3 on odd planes and RCAN: bit-equal to the parent",
-          flush=True)
+    print(f"{', '.join(equal)}: bit-equal to the parent", flush=True)
     # K2 and K3 take less device time than their wrappers' host time: they
     # are also timed from CUDA graph replays, in turns like the rest
     graphed = ("pre_upscale_fused", "merge_ycrcb_to_bgr_fused", k3_odd)
@@ -345,8 +373,7 @@ def main(argv=None) -> int:
     for r in range(args.rounds):
         row = {}
         for name, suffix, timer in timed:
-            reps = max(3, args.reps // 5) if name == "rcan_fused" \
-                else args.reps
+            reps = max(3, args.reps // 5) if name in SLOW else args.reps
             p = [timer(fns["parent"][name], reps)]
             c = [timer(fns["change"][name], reps) for _ in range(2)]
             p.append(timer(fns["parent"][name], reps))

@@ -10,10 +10,10 @@ as three kernels: K2 the pre-pass (:mod:`.ops.cuda_resize`), the network
 on Y and K3 the post-pass (:mod:`.ops.cuda_merge`).  The network follows
 from the weights' type (:func:`network_y`): SRCNN's K1 conv stack
 (:mod:`.ops.cuda_srcnn`) for ``SRCNNWeights``, the VDSR chain
-(:mod:`.ops.cuda_vdsr`) for ``VDSRWeights``.  ``RCANWeights`` take the
-pipeline's other shape (:func:`upscale_planar`): RCAN x2
-(:mod:`.ops.cuda_rcan`) upscales the BGR frame itself, with no YCrCb, no
-bicubic and no merge.
+(:mod:`.ops.cuda_vdsr`) for ``VDSRWeights``.  ``RCANWeights`` and
+``SwinIRWeights`` take the pipeline's other shape (:func:`upscale_planar`):
+RCAN x2 (:mod:`.ops.cuda_rcan`) or SwinIR x2 (:mod:`.ops.cuda_swinir`)
+upscales the BGR frame itself, with no YCrCb, no bicubic and no merge.
 On a CUDA device each wrapper launches its kernel; on the CPU each runs its
 plain PyTorch version.  There is one path per device and no fallback.
 
@@ -43,10 +43,12 @@ from .ops.cuda_merge import merge_ycrcb_to_bgr_fused
 from .ops.cuda_rcan import rcan_fused
 from .ops.cuda_resize import pre_upscale_fused
 from .ops.cuda_srcnn import srcnn_y_fused
+from .ops.cuda_swinir import swinir_fused
 from .ops.cuda_vdsr import vdsr_y_fused
 from .ops.resize import resize_bicubic_u8, scaled_size
 from .utils.profiling import span
-from .weights import RCANWeights, SRCNNWeights, VDSRWeights, weights_on
+from .weights import (RCANWeights, SRCNNWeights, SwinIRWeights, VDSRWeights,
+                      weights_on)
 
 
 def u8_tensor(frames) -> torch.Tensor:
@@ -75,12 +77,14 @@ def upscale_planar(bgr_p: torch.Tensor, weights,
     """Planar BGR u8 ``[B, 3, H, W]`` -> planar BGR u8 ``[B, 3, oh, ow]``,
     on the device of ``bgr_p`` (``weights`` must live there too).  The
     weights' type picks the shape: K2 -> the network on Y -> K3 for
-    ``SRCNNWeights`` and ``VDSRWeights`` (:func:`network_y`); RCAN x2 on
-    the RGB frame for ``RCANWeights``, which upscales by 2 only (another
-    ``out_hw`` raises ValueError)."""
+    ``SRCNNWeights`` and ``VDSRWeights`` (:func:`network_y`); RCAN x2 or
+    SwinIR x2 on the RGB frame for ``RCANWeights`` or ``SwinIRWeights``,
+    which upscale by 2 only (another ``out_hw`` raises ValueError)."""
     with span("srcnn.pipeline"):
         if isinstance(weights, RCANWeights):
             return rcan_fused(bgr_p, weights, out_hw)
+        if isinstance(weights, SwinIRWeights):
+            return swinir_fused(bgr_p, weights, out_hw)
         up = pre_upscale_fused(bgr_p, out_hw)        # YCrCb [B, 3, oh, ow]
         y_sr = network_y(up[:, 0], weights)          # [B, oh, ow]
         return merge_ycrcb_to_bgr_fused(y_sr, up)
@@ -253,7 +257,7 @@ upscale_host.chunks = 0   # chunks those calls sent
 
 def upscale_bgr_batch(bgr_u8, scale: float,
                       weights: SRCNNWeights | VDSRWeights | RCANWeights
-                      | None = None,
+                      | SwinIRWeights | None = None,
                       device="cuda"):
     """Super-resolve a batch ``[B, H, W, 3]`` of BGR uint8 frames on
     ``device`` into ``[B, oh, ow, 3]``.

@@ -3,7 +3,7 @@
 The kernels (``csrc/pre_pass.cu``; ``csrc/srcnn_conv.cu``, whose template
 gives the conv, conv+merge and f32-output conv; ``csrc/merge.cu``;
 ``csrc/vdsr_conv.cu``, the VDSR chain and the 64->64 conv it shares;
-``csrc/rcan.cu``, RCAN; the shared headers ``csrc/color.cuh``,
+``csrc/rcan.cu``, RCAN; ``csrc/swinir.cu``, SwinIR; the shared headers ``csrc/color.cuh``,
 ``csrc/wgmma.cuh`` and ``csrc/conv3x3.cuh``) have a plain C interface.  Each
 ``.cu`` source is compiled for ``sm_90a`` (Hopper) by its own ``nvcc``, all
 started together,
@@ -37,7 +37,8 @@ BUILD_DIR = Path(__file__).with_name("_build")
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
-_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                   ctypes.c_float)
 #: C signatures: name -> argtypes (every function returns an int error code)
 _SIGNATURES = {
     "srcnn_conv_u8": (_P, _LL, _P, _P, *(_I,) * 7, _P),
@@ -49,6 +50,8 @@ _SIGNATURES = {
     "vdsr_y_u8": (_P, _LL, *(_P,) * 6, *(_I,) * 5, _P),
     "rcan_x2_u8": (_P, _LL, *(_P,) * 6, *(_I,) * 7, _P),
     "rcan_conv3x3_f32": (_I, _I, *(_P,) * 10, *(_I,) * 8, _P),
+    "swinir_x2_u8": (_P, _LL, *(_P,) * 7, *(_I,) * 8, _F, _P),
+    "swinir_gemm_f32": (_I, *(_P,) * 3, _I, *(_P,) * 3, *(_I,) * 4, _F, _P),
 }
 
 

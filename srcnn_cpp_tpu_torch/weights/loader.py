@@ -161,9 +161,9 @@ def _canonical(device) -> torch.device:
 
 
 def weights_on(weights, device):
-    """``weights``, an :class:`SRCNNWeights`, a ``VDSRWeights`` or an
-    ``RCANWeights`` (the pretrained SRCNN checkpoint when None), on
-    ``device``.
+    """``weights``, an :class:`SRCNNWeights`, a ``VDSRWeights``, an
+    ``RCANWeights`` or a ``SwinIRWeights`` (the pretrained SRCNN checkpoint
+    when None), on ``device``.
 
     The checkpoint is loaded once per process and device.  Weights that
     live on ``device`` (``cuda`` and ``cuda:<current>`` are one device)

@@ -111,7 +111,8 @@ class RCANWeights:
 
 def read_recipe(path: Path | str) -> tuple[int, list]:
     """``(seed, tensors)`` of a recipe file: a JSON line holding ``seed``,
-    then one JSON line ``[name, shape, std]`` a tensor."""
+    then one JSON line ``[name, shape, std]`` (or ``[name, shape, std,
+    mean]``) a tensor."""
     head, *rows = Path(path).read_text().splitlines()
     return int(json.loads(head)["seed"]), [json.loads(r) for r in rows]
 
@@ -119,13 +120,15 @@ def read_recipe(path: Path | str) -> tuple[int, list]:
 def expand_recipe(seed: int, tensors: list) -> dict[str, np.ndarray]:
     """A seeded checkpoint recipe -> its float32 arrays: NumPy's PCG64
     seeded with ``seed`` draws, tensor after tensor in the recipe's order,
-    ``standard_normal(shape) * std`` (rounded to float32); a tensor of std
-    0 is zeros and draws nothing."""
+    ``standard_normal(shape) * std + mean`` (rounded to float32; a row
+    ``[name, shape, std]`` has mean 0, SwinIR's ``[name, shape, std,
+    mean]`` gives it); a tensor of std 0 is its mean and draws nothing."""
     rng = np.random.default_rng(seed)
     out = {}
-    for name, shape, std in tensors:
-        out[name] = (rng.standard_normal(shape) * std).astype(np.float32) \
-            if std else np.zeros(shape, np.float32)
+    for name, shape, std, *mean in tensors:
+        m = mean[0] if mean else 0.0
+        out[name] = (rng.standard_normal(shape) * std + m) \
+            .astype(np.float32) if std else np.full(shape, m, np.float32)
     return out
 
 

@@ -126,7 +126,7 @@ def test_nvcc_command_targets_sm90a():
     srcs = runtime.sources()
     assert {p.name for p in srcs} == {"merge.cu", "pre_pass.cu",
                                       "rcan.cu", "srcnn_conv.cu",
-                                      "vdsr_conv.cu"}
+                                      "swinir.cu", "vdsr_conv.cu"}
     for src in srcs:     # one compiler call per source, all for sm_90a
         cmd = runtime.compile_command(src, Path("/tmp/x.o"))
         assert "arch=compute_90a,code=sm_90a" in " ".join(cmd)

@@ -174,6 +174,34 @@ def test_rcan_weights_run_the_network_inside_the_pipeline(tmp_path):
     assert "srcnn.build.cubic_tables" not in by_name
 
 
+def test_swinir_weights_run_the_network_inside_the_pipeline(tmp_path):
+    # SwinIR takes the pipeline's other shape, as RCAN does: its network
+    # enqueued inside srcnn.pipeline; a warm call writes no build span
+    from srcnn_cpp_tpu_torch.ops import cuda_swinir
+    from srcnn_cpp_tpu_torch.pipeline import upscale_bgr_batch
+
+    w = _small_swinir()
+    x = _frames(1, 8, 8, 5)
+    cuda_swinir.pack_swinir(w)
+    upscale_bgr_batch(x, 2.0, w, "cpu")
+    spans = _spans(_traced(lambda: upscale_bgr_batch(x, 2.0, w, "cpu"),
+                           tmp_path))
+    by_name = {e["name"]: e for e in spans}
+    assert _inside(by_name["srcnn.swinir"], by_name["srcnn.pipeline"])
+    assert _inside(by_name["srcnn.pipeline"], by_name["srcnn.entry"])
+    assert not [e for e in spans if e["name"].startswith("srcnn.build.")]
+
+
+def _small_swinir():
+    """SwinIR at the published widths, 1 RSTB of 1 STL, seeded."""
+    from srcnn_cpp_tpu_torch.weights import SwinIRWeights
+    from srcnn_cpp_tpu_torch.weights.swinir import swinir_shapes
+
+    g = torch.Generator().manual_seed(0)
+    return SwinIRWeights({k: 0.05 * torch.randn(s, generator=g) for k, s in
+                          swinir_shapes(groups=1, depth=1).items()})
+
+
 def _k2_plan():
     from srcnn_cpp_tpu_torch.ops import cuda_resize
 
@@ -237,10 +265,24 @@ def _rcan_weights():
     return None, lambda: pack_rcan(w)
 
 
+def _swinir_plan():
+    from srcnn_cpp_tpu_torch.ops import cuda_swinir
+
+    return cuda_swinir._plan, lambda: cuda_swinir._plan(24, 40, 132)
+
+
+def _swinir_weights():
+    from srcnn_cpp_tpu_torch.ops.cuda_swinir import pack_swinir
+
+    w = _small_swinir()      # a new object: its packed buffers are not built
+    return None, lambda: pack_swinir(w)
+
+
 BUILDERS = {"k2_plan": _k2_plan, "k1_plan": _k1_plan, "k3_args": _k3_args,
             "cubic_tables": _cubic_tables, "weights": _weights,
             "vdsr_plan": _vdsr_plan, "vdsr_weights": _vdsr_weights,
-            "rcan_plan": _rcan_plan, "rcan_weights": _rcan_weights}
+            "rcan_plan": _rcan_plan, "rcan_weights": _rcan_weights,
+            "swinir_plan": _swinir_plan, "swinir_weights": _swinir_weights}
 
 
 @pytest.mark.parametrize("what", sorted(BUILDERS))
