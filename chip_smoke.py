@@ -97,8 +97,10 @@ read just after:
   size, 2 frames of 1080x1920 -> 2160x3840 with the seeded weights of
   ``portbench/configs/swinir_x2_seeded.jsonl``: ``upscale_planar``
   launches it once and K2, K1, K3 never; each frame within 1 LSB of the
-  fp32 path (TF32 off) on under 0.5 % of bytes; a trace of one call holds
-  194 kernels a frame, 180 of them named ``swin_stl_*``; ms a frame
+  fp32 path (TF32 off) on under 0.5 % of bytes; every GEMM launch (152 a
+  frame) staged its epilogue (``swinir_fused.staged_epilogues``); a trace
+  of one call holds 194 kernels a frame, 180 of them named
+  ``swin_stl_*``; ms a frame
   beside the plain path and its bound.
 
 Each phase from 7 on prints its wall time.
@@ -1878,7 +1880,8 @@ def phase_swinir(e: Extra, launches: dict, max_err: dict, ms: dict,
                  plain_ms: dict, bounds: dict) -> None:
     """SwinIR x2 at the frame size of the benchmark's SwinIR cell: a batch
     of 2 frames of 1080x1920 through ``upscale_planar`` at x2."""
-    from srcnn_cpp_tpu_torch.ops.cuda_swinir import (launch_schedule,
+    from srcnn_cpp_tpu_torch.ops.cuda_swinir import (gemm_launches,
+                                                     launch_schedule,
                                                      swinir_fused,
                                                      swinir_plain,
                                                      swinir_plan)
@@ -1893,6 +1896,7 @@ def phase_swinir(e: Extra, launches: dict, max_err: dict, ms: dict,
     from portbench.frames import make
 
     x = make(SEED + 27, b, (h, w), "cuda").permute(0, 3, 1, 2).contiguous()
+    staged = swinir_fused.staged_epilogues
     out, got = e.drive("upscale_planar with SwinIR weights",
                        lambda: upscale_planar(x, weights, (oh, ow)),
                        ("swinir_fused",))
@@ -1900,6 +1904,12 @@ def phase_swinir(e: Extra, launches: dict, max_err: dict, ms: dict,
             or got["srcnn_y_fused"] or got["merge_ycrcb_to_bgr_fused"]:
         raise AssertionError("upscale_planar did not run SwinIR once and "
                              "K2, K1, K3 never")
+    staged = swinir_fused.staged_epilogues - staged
+    say(f"  staged epilogues: {staged} GEMM launches of {b} frames "
+        f"({staged // b} a frame)")
+    if staged != b * gemm_launches(weights.groups, weights.depth):
+        raise AssertionError(f"SwinIR staged {staged} epilogues, not every "
+                             f"GEMM launch's")
     launches["swinir_fused"] = got["swinir_fused"]
     err, off = 0, 0
     for i in range(b):

@@ -56,12 +56,34 @@
 // the LayerNorm loader of the next GEMM reads them, 8 bytes a pixel.  Unlike the 64->64 body of
 // vdsr_conv.cu (output channels as M), whose instances VDSR and RCAN keep.
 //
+// What bounds the linears, a 1080p layer (2,073,600 pixels) on an H100:
+// 3xTF32's products at the dense TF32 peak (qkv 2.66 ms, fc1 1.78, proj
+// 0.89, fc2 1.70) and the bytes of the first read of A and of the
+// epilogue's reads and writes at 3.35 TB/s (1.82, 1.37, 1.37, 1.83 ms).
+// An epilogue that loaded the residual and stored from the consumers'
+// registers ran each unit's bytes after its products, so that a linear
+// took about the sum of the two.  The staged epilogue takes its bytes off
+// the consumers: each block holds a unit's output tile, [128 px][NT]
+// floats, in shared memory beside the ring (which keeps the stages that
+// fit: 3 at NT = 184, 5 at 64).  While the consumers run a residual
+// unit's products, the producer's thread 0 bulk-copies its residual rows
+// into the tile; the consumers add bias and residual in registers as
+// before and write the tile; thread 0 stores it to out with one tensor
+// copy (out as a 2-D tensor map, boxes of [128][NT], clipped at the
+// frame's end) while the consumers run the next unit's products, and
+// waits for that copy to have read the tile before it fills the tile
+// again.  What then paces the body is the producer: its loads of each
+// stage's activations, through registers PF stages ahead, leave the
+// consumers waiting on `full` for 32-49 % of a unit (clock64 counts
+// of an instrumented build on an H100, in every GEMM kind).
+//
 // Buffers (one call's workspace, ops/cuda_swinir.py::swinir_plan), token
 // maps of 184 floats a pixel: F (f0, later conv_before_upsample's 64-map),
 // G (an RSTB's input, then its output), X (the STLs' residual stream), O
 // (the attention's output), and Q, 552 floats a pixel (qkv; then the MLP's
 // 368-map; then the upsampled [2H][2W][64] map).
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -101,7 +123,8 @@ constexpr int TM = 128;                     // pixels of a unit
 constexpr int KC = 16;                      // input channels of a stage:
                                             // two k8 steps, 6 products a
                                             // consumer between barriers
-constexpr int STAGES = 5;
+constexpr int MAX_STAGES = 5;
+constexpr int SMEM_MAX = 232448;            // one block's shared memory
 constexpr int NCONS = 2;                    // 64 pixels a consumer
 constexpr int NTHREADS = 128 * (NCONS + 1);
 constexpr int HALF = TM * 4 + 8;            // a [128 px][4 ch] plane, padded
@@ -112,19 +135,32 @@ constexpr int A_PLANE = KC / 4 * HALF;      // 16 channels, hi or lo
 // MLP's (368)
 constexpr int KCH = (184 + KC - 1) / KC, KCH_HID = 368 / KC;
 
+// Shared memory: the ring, then the staged epilogue's tile, a unit's
+// [128 px][NT] outputs as out holds them (rows of NT floats, no pad: the
+// bulk copies move it as it lies), then the ring's full and empty
+// mbarriers and the tile's ready and staged.  The ring is as deep as fits
+// beside the tile, at most MAX_STAGES.
 template <int NT>
 struct Geo {
   static constexpr int B_MAT = NT * KC;     // [2][NT][8], hi or lo
   static constexpr int STAGE = 2 * B_MAT + 2 * A_PLANE;
-  static constexpr int BAR = STAGES * STAGE;
-  static constexpr size_t SMEM = sizeof(float) * BAR + 8 * 2 * STAGES;
+  static constexpr int TILE = TM * NT;
+  static constexpr int FIT =
+      (SMEM_MAX - 4 * TILE - 8 * 2 * (MAX_STAGES + 1)) / (4 * STAGE);
+  static constexpr int STAGES = FIT < MAX_STAGES ? FIT : MAX_STAGES;
+  static constexpr int OUT = STAGES * STAGE;  // the tile
+  static constexpr int BAR = OUT + TILE;
+  static constexpr size_t SMEM = sizeof(float) * BAR + 8 * 2 * (STAGES + 1);
   static_assert((B_MAT * 4) % 16 == 0 && (STAGE * 4) % 16 == 0 &&
                     BAR % 2 == 0,
                 "bulk copies and descriptors on 16-byte boundaries");
-  static_assert(SMEM <= 232448, "one block's shared memory on sm_90");
+  static_assert(STAGES >= 2 && SMEM <= SMEM_MAX,
+                "one block's shared memory on sm_90");
+  static_assert((OUT * 4) % 128 == 0, "the tensor store's tile 128-aligned");
 };
 static_assert(Geo<184>::STAGE == 10048 && Geo<64>::STAGE == 6208 &&
-                  Geo<184>::SMEM == 201040 && Geo<64>::SMEM == 124240,
+                  Geo<184>::STAGES == 3 && Geo<64>::STAGES == 5 &&
+                  Geo<184>::SMEM == 214848 && Geo<64>::SMEM == 157024,
               "ops/cuda_swinir.py::gemm_smem_bytes");
 static_assert((HALF * 4) % 128 == 32, "planes 8 banks apart");
 
@@ -160,6 +196,28 @@ __device__ __forceinline__ void bulk_copy(float* dst, const float* src,
       "[%0], [%1], %2, [%3];\n"
       ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(b))
       : "memory");
+}
+
+// The box at column c, row r of the 2-D tensor `map` from shared memory
+// (its [rows][columns] densely, 128-byte aligned), in this thread's bulk
+// group; the rows past the tensor's end are not stored.
+__device__ __forceinline__ void tensor_store(const CUtensorMap* map,
+                                             const float* src, int c, int r) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group "
+      "[%0, {%1, %2}], [%3];\n"
+      ::"l"(reinterpret_cast<uint64_t>(map)), "r"(c), "r"(r),
+        "r"(smem_u32(src))
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// until this thread's bulk stores have read their shared memory
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
 }
 
 // D[64 x 184] += A[64 x 8] . B[8 x 184], both from shared memory.
@@ -289,9 +347,44 @@ __device__ __forceinline__ float4 layer_norm(float4 x, float2 st, float4 gm,
   return y;
 }
 
-template <int NT, int TAPS, int LOAD>
+// The staged epilogue's traffic, moved by the producer's thread 0 while
+// the consumers run the next unit's products: once they have staged unit u
+// (this block's i-th) in the tile, one tensor store of it to out (`map`:
+// out as [P][out_stride] floats in boxes of [128][NT]).
+template <int NT>
+__device__ __forceinline__ void store_tile(const Gemm& g,
+                                           const CUtensorMap* map,
+                                           const float* tile,
+                                           uint64_t* staged, int i, int u) {
+  bar_wait(staged, i & 1);
+  tensor_store(map, tile, (u % g.ntiles) * NT, (u / g.ntiles) * TM);
+  bulk_commit();
+}
+
+// Once the last store has read the tile: SW_RESID, unit u's residual rows
+// into it (skip at out's layout, whose rows a residual unit's tile spans
+// whole; clipped at the frame's end), completing `ready` by their bytes;
+// else `ready` at once.
+template <int NT, int EPI>
+__device__ __forceinline__ void free_tile(const Gemm& g, float* tile,
+                                          uint64_t* ready, int u) {
+  bulk_wait_read();
+  if (EPI == SW_RESID) {
+    const long long px0 = (long long)u * TM;
+    const long long left = (long long)g.H * g.W - px0;
+    const uint32_t bytes = (left < TM ? (uint32_t)left : TM) * NT * 4;
+    bar_arrive_tx(ready, bytes);
+    bulk_copy(tile, g.skip + px0 * NT, bytes, ready);
+  } else {
+    bar_arrive(ready);
+  }
+}
+
+template <int NT, int TAPS, int LOAD, int EPI>
 __device__ __forceinline__ void producer(const Gemm& g, float* smem,
-                                         uint64_t* full, uint64_t* empty) {
+                                         uint64_t* full, uint64_t* empty,
+                                         uint64_t* ready, uint64_t* staged,
+                                         const CUtensorMap* map) {
   using G = Geo<NT>;
   const int tid = threadIdx.x & 127;
   const long long P = (long long)g.H * g.W;
@@ -301,8 +394,15 @@ __device__ __forceinline__ void producer(const Gemm& g, float* smem,
   int pl[PIX];                              // this thread's pixels
 #pragma unroll
   for (int k = 0; k < PIX; ++k) pl[k] = (tid >> 2) + 32 * k;
+  // thread 0 moves the tiles: the previous unit's out before the first
+  // stage of this unit that waits on the consumers' products of it (they
+  // staged that unit before), this unit's residual two stages later
+  const int h0 = G::STAGES < ksteps - 1 ? G::STAGES : ksteps - 1;
+  const int h1 = h0 + 2 < ksteps - 1 ? h0 + 2 : ksteps - 1;
+  float* tile = smem + G::OUT;
   uint32_t n = 0;                           // stages filled so far
-  for (int u = blockIdx.x; u < count; u += gridDim.x) {
+  int i = 0;                                // this block's units so far
+  for (int u = blockIdx.x; u < count; u += gridDim.x, ++i) {
     const int nt = u % g.ntiles;
     const long long px0 = (long long)(u / g.ntiles) * TM;
     Cursor<TAPS> cur;
@@ -345,9 +445,11 @@ __device__ __forceinline__ void producer(const Gemm& g, float* smem,
       for (int j = 0; j < PF; ++j) {
         const int ks = k0 + j;
         if (ks >= ksteps) break;
-        const int s = n % STAGES;
+        const int s = n % G::STAGES;
         if (LOAD == SW_LN && TAPS > 1 && q == 0 && tap > 0) tap_stats(tap);
-        bar_wait(&empty[s], pass_parity<STAGES>(n) ^ 1u);
+        if (tid == 0 && ks == h0 && i > 0)
+          store_tile<NT>(g, map, tile, staged, i - 1, u - gridDim.x);
+        bar_wait(&empty[s], pass_parity<G::STAGES>(n) ^ 1u);
         float* stg = smem + s * G::STAGE;
         if (tid == 0) {
           bar_arrive_tx(&full[s], 2 * G::B_MAT * 4);
@@ -387,8 +489,14 @@ __device__ __forceinline__ void producer(const Gemm& g, float* smem,
         asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
         bar_arrive(&full[s]);
         ++n;
+        if (tid == 0 && ks == h1) free_tile<NT, EPI>(g, tile, ready, u);
       }
     }
+  }
+  if (tid == 0 && i > 0) {
+    store_tile<NT>(g, map, tile, staged, i - 1,
+                   blockIdx.x + (i - 1) * gridDim.x);
+    bulk_wait_read();                      // before the block's exit
   }
 }
 
@@ -429,13 +537,17 @@ __device__ __forceinline__ void quad_stats(const float (&acc)[NT / 8][4],
 }
 
 // The epilogue of one consumer's 64 pixels: rows p0 (this thread's g) and
-// p0 + 8, columns n0 + 8 j + 2 t, + 1 of D.
+// p0 + 8, columns n0 + 8 j + 2 t, + 1 of D; they are rows row and row + 8
+// of the unit's tile, which holds the residual (SW_RESID) and takes the
+// outputs.
 template <int NT, int EPI>
 __device__ __forceinline__ void epilogue(const Gemm& g, float (&acc)[NT / 8][4],
-                                         long long p0, int n0, int t) {
+                                         float* tile, int row, long long p0,
+                                         int n0, int t) {
   const long long P = (long long)g.H * g.W;
   const long long p[2] = {p0, p0 + 8};
   const bool ok[2] = {p[0] < P, p[1] < P};
+  float* at[2] = {tile + row * NT + 2 * t, tile + (row + 8) * NT + 2 * t};
 #pragma unroll
   for (int j = 0; j < NT / 8; ++j) {
     const float2 b = __ldg(reinterpret_cast<const float2*>(
@@ -445,8 +557,7 @@ __device__ __forceinline__ void epilogue(const Gemm& g, float (&acc)[NT / 8][4],
       float v0 = acc[j][2 * r] + b.x, v1 = acc[j][2 * r + 1] + b.y;
       if constexpr (EPI == SW_RESID) {
         if (ok[r]) {
-          const float2 s = *reinterpret_cast<const float2*>(
-              g.skip + p[r] * g.out_stride + n0 + 8 * j + 2 * t);
+          const float2 s = *reinterpret_cast<const float2*>(at[r] + 8 * j);
           v0 = s.x + v0;
           v1 = s.y + v1;
         }
@@ -474,28 +585,30 @@ __device__ __forceinline__ void epilogue(const Gemm& g, float (&acc)[NT / 8][4],
         if (ok[r]) g.stats_out[p[r]] = make_float2(mean[r], rstd[r]);
     }
   }
+  // rows past the frame's end are staged too, and never stored
 #pragma unroll
   for (int j = 0; j < NT / 8; ++j) {
 #pragma unroll
     for (int r = 0; r < 2; ++r)
-      if (ok[r])
-        *reinterpret_cast<float2*>(g.out + p[r] * g.out_stride + n0 + 8 * j +
-                                   2 * t) =
-            make_float2(acc[j][2 * r], acc[j][2 * r + 1]);
+      *reinterpret_cast<float2*>(at[r] + 8 * j) =
+          make_float2(acc[j][2 * r], acc[j][2 * r + 1]);
   }
 }
 
 template <int NT, int TAPS, int EPI>
 __device__ __forceinline__ void consumer(const Gemm& g, float* smem,
                                          uint64_t* full, uint64_t* empty,
+                                         uint64_t* ready, uint64_t* staged,
                                          int c) {
   using G = Geo<NT>;
+  constexpr int STAGES = G::STAGES;
   const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
   const long long P = (long long)g.H * g.W;
   const int count = (int)((P + TM - 1) / TM) * g.ntiles;
   const int ksteps = TAPS * g.kchunks;
   uint32_t n = 0;                           // stages consumed so far
-  for (int u = blockIdx.x; u < count; u += gridDim.x) {
+  int i = 0;                                // this block's units so far
+  for (int u = blockIdx.x; u < count; u += gridDim.x, ++i) {
     float acc[NT / 8][4];
 #pragma unroll
     for (int j = 0; j < NT / 8; ++j)
@@ -530,58 +643,118 @@ __device__ __forceinline__ void consumer(const Gemm& g, float* smem,
     wg_wait<0>();
     fence_acc(acc);
     bar_arrive(&empty[prev]);
+    // the tile is free (the last unit's store has read it) and holds this
+    // unit's residual rows
+    bar_wait(ready, i & 1);
     const long long px0 = (long long)(u / g.ntiles) * TM;
-    epilogue<NT, EPI>(g, acc, px0 + 64 * c + 16 * warp + (lane >> 2),
+    const int row = 64 * c + 16 * warp + (lane >> 2);
+    epilogue<NT, EPI>(g, acc, smem + G::OUT, row, px0 + row,
                       (u % g.ntiles) * NT, lane & 3);
+    // these generic-proxy stores are read by the bulk store (async proxy)
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    bar_arrive(staged);
   }
 }
 
 template <int NT, int TAPS, int LOAD, int EPI>
-__device__ __forceinline__ void gemm(const Gemm& g) {
+__device__ __forceinline__ void gemm(const Gemm& g, const CUtensorMap* map) {
   using G = Geo<NT>;
-  extern __shared__ float4 smem4[];
+  extern __shared__ __align__(128) float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + G::BAR);
-  uint64_t* empty = full + STAGES;
+  uint64_t* empty = full + G::STAGES;
+  uint64_t* ready = empty + G::STAGES;     // the tile free (and filled)
+  uint64_t* staged = ready + 1;            // the tile staged
   if (threadIdx.x == 0) {
-    for (int s = 0; s < STAGES; ++s) {
+    for (int s = 0; s < G::STAGES; ++s) {
       bar_init(&full[s], 128 + 1);         // producer threads + the tx arrival
       bar_init(&empty[s], 128 * NCONS);
     }
+    bar_init(ready, 1);                    // the producer's thread 0 (+ tx)
+    bar_init(staged, 128 * NCONS);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
   const int wg = threadIdx.x / 128;
   if (wg == NCONS)
-    producer<NT, TAPS, LOAD>(g, smem, full, empty);
+    producer<NT, TAPS, LOAD, EPI>(g, smem, full, empty, ready, staged, map);
   else
-    consumer<NT, TAPS, EPI>(g, smem, full, empty, wg);
+    consumer<NT, TAPS, EPI>(g, smem, full, empty, ready, staged, wg);
 }
 
 // An STL's token-wise linear: 1 tap, 184 output channels a tile.
 template <int LOAD, int EPI>
 __global__ void __launch_bounds__(NTHREADS, 1)
-swin_stl_linear_kernel(Gemm g) {
-  gemm<CP, 1, LOAD, EPI>(g);
+swin_stl_linear_kernel(Gemm g, const __grid_constant__ CUtensorMap out) {
+  gemm<CP, 1, LOAD, EPI>(g, &out);
 }
 
 // A 3x3 conv outside the STLs: NT output channels a tile.
 template <int NT, int LOAD, int EPI>
 __global__ void __launch_bounds__(NTHREADS, 1)
-swinir_conv3x3_kernel(Gemm g) {
-  gemm<NT, 9, LOAD, EPI>(g);
+swinir_conv3x3_kernel(Gemm g, const __grid_constant__ CUtensorMap out) {
+  gemm<NT, 9, LOAD, EPI>(g, &out);
+}
+
+// cuTensorMapEncodeTiled (libcuda's), found through the runtime's
+// entry-point query, so that the library links no libcuda
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+    return e == cudaSuccess && q == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// out as the staged epilogue's tensor store sees it: [P][out_stride] floats
+// in boxes of [128][NT], a unit's tile.  False where the bulk copies cannot
+// move the tiles: out's rows off 16-byte boundaries, or a residual unit's
+// tile not spanning skip's rows whole.
+template <int NT, int EPI>
+bool out_map(const Gemm& g, CUtensorMap* map) {
+  if ((reinterpret_cast<uintptr_t>(g.out) & 15) != 0 || g.out_stride % 4 != 0 ||
+      (EPI == SW_RESID && ((reinterpret_cast<uintptr_t>(g.skip) & 15) != 0 ||
+                           g.ntiles != 1 || g.out_stride != NT)))
+    return false;
+  const EncodeTiled encode = encode_tiled();
+  const cuuint64_t dims[2] = {(cuuint64_t)g.out_stride,
+                              (cuuint64_t)g.H * g.W};
+  const cuuint64_t stride[1] = {(cuuint64_t)g.out_stride * 4};
+  const cuuint32_t box[2] = {NT, TM}, step[2] = {1, 1};
+  return encode != nullptr &&
+         encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, g.out, dims, stride,
+                box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_NONE,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int LOAD, int EPI>
 cudaError_t linear(const Gemm& g, int grid, cudaStream_t s) {
-  swin_stl_linear_kernel<LOAD, EPI><<<grid, NTHREADS, Geo<CP>::SMEM, s>>>(g);
+  CUtensorMap out;
+  if (!out_map<CP, EPI>(g, &out)) return cudaErrorInvalidValue;
+  swin_stl_linear_kernel<LOAD, EPI>
+      <<<grid, NTHREADS, Geo<CP>::SMEM, s>>>(g, out);
   return cudaGetLastError();
 }
 
 template <int NT, int LOAD, int EPI>
 cudaError_t conv3x3(const Gemm& g, int grid, cudaStream_t s) {
+  CUtensorMap out;
+  if (!out_map<NT, EPI>(g, &out)) return cudaErrorInvalidValue;
   swinir_conv3x3_kernel<NT, LOAD, EPI>
-      <<<grid, NTHREADS, Geo<NT>::SMEM, s>>>(g);
+      <<<grid, NTHREADS, Geo<NT>::SMEM, s>>>(g, out);
   return cudaGetLastError();
 }
 

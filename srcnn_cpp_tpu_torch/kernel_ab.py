@@ -23,7 +23,8 @@ checks that both give the same K2, K3, RCAN and SwinIR outputs, K1 and VDSR
 outputs within 1 LSB of each other (it prints their largest difference) and
 host-array outputs within 2 LSB, and it profiles
 20 calls of each pipeline and of the odd-plane K3 (``torch.profiler``:
-device time by kernel, busy share of the span), and prints K2's static
+device time by kernel, busy share of the span) and, in turns, 2 calls of
+each ``swinir_fused`` (device time by kernel), and prints K2's static
 SASS instruction counts of both builds and whether the shared conv
 bodies' instances (``vdsr_conv3x3_kernel``, RCAN's ``rcan_conv3x3_kernel``
 of each epilogue and loader, SwinIR's ``swin_stl_*`` and
@@ -223,7 +224,7 @@ def conv_sass(code: dict) -> dict[str, list[str]]:
     ``e`` and loader ``l`` (mangled ``...ILi<e>ELi<l>EE``, or ``...ILi<e>EE``
     before the loader became a template parameter, read as ``l`` 0); and
     SwinIR's ``swin_stl_linear_kernel<l, e>``, ``swinir_conv3x3_kernel<n,
-    e>`` and ``swin_stl_attention_kernel``."""
+    l, e>`` and ``swin_stl_attention_kernel``."""
     out = {}
     for name, body in code.items():
         if "vdsr_conv3x3_kernel" in name:
@@ -231,10 +232,11 @@ def conv_sass(code: dict) -> dict[str, list[str]]:
         if "swin_stl_attention_kernel" in name:
             out["swin_stl_attention_kernel"] = body
         m = re.search(r"(rcan_conv3x3|swin_stl_linear|swinir_conv3x3)_kernel"
-                      r"ILi(\d+)E(?:Li(\d+)E)?E", name)
+                      r"ILi(\d+)E(?:Li(\d+)E)?(?:Li(\d+)E)?E", name)
         if m:
+            last = f", {m.group(4)}" if m.group(4) else ""
             out[f"{m.group(1)}_kernel<{m.group(2)}, "
-                f"{m.group(3) or 0}>"] = body
+                f"{m.group(3) or 0}{last}>"] = body
     return out
 
 
@@ -391,6 +393,18 @@ def main(argv=None) -> int:
                        v for row in rounds for v in row[name][side])
                        for side in ("parent", "change")}
                    for name in rounds[0]}}
+    if "swinir_fused" in fns["change"]:
+        # SwinIR's kernels by name, 2 calls a profile, in turns
+        swin = {"parent": [], "change": []}
+        for tag in ("parent", "change", "change", "parent"):
+            swin[tag].append(profile(fns[tag]["swinir_fused"], iters=2)
+                             ["kernels_ms_per_call"])
+        summary["profile_swinir"] = swin
+        for k, v in sorted(swin["parent"][0].items(), key=lambda kv: -kv[1]):
+            print(f"profile swinir_fused, {k}: parent " + "/".join(
+                f"{p.get(k, 0):.3f}" for p in swin["parent"]) + " ms, change "
+                + "/".join(f"{p.get(k, 0):.3f}" for p in swin["change"])
+                + f" ms a call ({card})", flush=True)
     args.out.parent.mkdir(parents=True, exist_ok=True)
     args.out.write_text(json.dumps(summary, indent=1))
     for tag in ("parent", "change"):

@@ -12,8 +12,11 @@ the final LayerNorm + conv_after_body with the long skip,
 conv_before_upsample with LeakyReLU, RCAN's upsampler and tail, and crops:
 194 kernels a frame at the published depth.  The linears and the convs
 run one GEMM body on Hopper's warpgroup MMA in 3xTF32, on token maps of
-184 floats a pixel (180 channels and 4 zero pads).  On a CPU tensor it runs
-the plain fp32 path of :mod:`.swinir`.  The two sum in other orders, so
+184 floats a pixel (180 channels and 4 zero pads); each of its launches
+stages a unit's epilogue in shared memory, its residual bulk-copied in
+and its outputs stored by one tensor copy while the next unit's products
+run (:func:`gemm_smem_bytes`, ``swinir_fused.staged_epilogues``).  On a
+CPU tensor it runs the plain fp32 path of :mod:`.swinir`.  The two sum in other orders, so
 they agree to within 1 LSB on a small share of bytes.
 
 This module also holds what the CPU tests check of the launch: the packed
@@ -40,15 +43,16 @@ from .cuda_vdsr import conv_grid, pack_layer, vdsr_smem_bytes
 from .swinir import swinir_x2
 
 __all__ = ["swinir_fused", "swinir_plain", "pack_swinir", "pack_gemm",
-           "stl_layout", "swinir_plan", "launch_schedule", "gemm_variant",
-           "ln_stats", "pad_index"]
+           "stl_layout", "swinir_plan", "launch_schedule", "gemm_launches",
+           "gemm_variant", "ln_stats", "pad_index"]
 
 #: the token map's floats a pixel: 180 channels and 4 zero pads
 CP = 184
 #: qkv's and the MLP's padded widths
 QKVP, HIDP = 3 * CP, 368
-#: the GEMM: pixels of a unit, input channels of a stage, the ring
-UNIT, STAGE_CHANNELS, STAGES = 128, 16, 5
+#: the GEMM: pixels of a unit, input channels of a stage, the deepest
+#: ring, one block's shared memory
+UNIT, STAGE_CHANNELS, MAX_STAGES, SMEM_MAX = 128, 16, 5, 232448
 HALF = UNIT * 4 + 8         # a staged [128 px][4 ch] plane, padded
 #: K of a token map (184 channels read, 8 zero) and of the MLP's map
 K_TOKENS, K_HIDDEN = 192, HIDP
@@ -63,10 +67,22 @@ def gemm_stage_floats(nt: int) -> int:
     return 2 * nt * STAGE_CHANNELS + 2 * (STAGE_CHANNELS // 4) * HALF
 
 
+def gemm_stages(nt: int) -> int:
+    """The GEMM's ring depth at ``nt`` outputs a tile: as deep as fits
+    beside the staged epilogue's tile (``[128][nt]`` floats) and the
+    mbarriers, at most :data:`MAX_STAGES` (3 at 184, 5 at 64)."""
+    fit = (SMEM_MAX - 4 * UNIT * nt - 16 * (MAX_STAGES + 1)) \
+        // (4 * gemm_stage_floats(nt))
+    return min(MAX_STAGES, fit)
+
+
 def gemm_smem_bytes(nt: int) -> int:
-    """Shared memory of a GEMM block: the ring and its full and empty
-    mbarriers."""
-    return 4 * STAGES * gemm_stage_floats(nt) + 16 * STAGES
+    """Shared memory of a GEMM block: the ring, the staged epilogue's tile
+    and the mbarriers (each stage's full and empty, the tile's ready and
+    staged)."""
+    stages = gemm_stages(nt)
+    return 4 * (stages * gemm_stage_floats(nt) + UNIT * nt) \
+        + 16 * (stages + 1)
 
 
 def pack_gemm(w: torch.Tensor, b: torch.Tensor, nt: int,
@@ -238,6 +254,17 @@ def launch_schedule(groups: int, depth: int) -> list[tuple]:
     return out + [("rcan_tail_kernel", "conv_last")]
 
 
+#: the kernels of the GEMM body: each launch runs the staged epilogue
+GEMM_KERNELS = ("swin_stl_linear_kernel", "swinir_conv3x3_kernel")
+
+
+def gemm_launches(groups: int, depth: int) -> int:
+    """The GEMM body's launches a frame (:func:`launch_schedule`): 4
+    linears an STL and the ``groups + 2`` 180-wide convs, 152 at the
+    published depth."""
+    return sum(k in GEMM_KERNELS for k, _ in launch_schedule(groups, depth))
+
+
 def pad_index(n: int) -> torch.Tensor:
     """The rows (or columns) of a side of ``n`` reflect-padded at its end to
     a multiple of 8 (``F.pad`` ``reflect``: ``n - 1`` is not repeated)."""
@@ -303,6 +330,8 @@ def swinir_fused(bgr_p: torch.Tensor, weights: SwinIRWeights,
             swinir_fused.launches += 1
             swinir_fused.windows += b * weights.groups * weights.depth \
                 * (hp // WINDOW) * (wp // WINDOW)
+            swinir_fused.staged_epilogues += b * gemm_launches(
+                weights.groups, weights.depth)
         if (hp, wp) != (h, w):
             out = out[:, :, :SCALE * h, :SCALE * w].contiguous()
         return out
@@ -311,6 +340,9 @@ def swinir_fused(bgr_p: torch.Tensor, weights: SwinIRWeights,
 swinir_fused.launches = 0
 #: windows attended, each by every head: groups x depth x windows a frame
 swinir_fused.windows = 0
+#: GEMM launches that staged their epilogue in shared memory and moved it
+#: with bulk copies: :func:`gemm_launches` a frame
+swinir_fused.staged_epilogues = 0
 
 
 def ln_stats(x: torch.Tensor) -> torch.Tensor:
@@ -327,7 +359,7 @@ def gemm_variant(kind: str, x: torch.Tensor, w: torch.Tensor | None = None,
                  b: torch.Tensor | None = None,
                  skip: torch.Tensor | None = None,
                  ln: tuple | None = None, table: torch.Tensor | None = None,
-                 shift: int = 0) -> dict:
+                 shift: int = 0, alias: bool = False) -> dict:
     """One launch of the body on a CUDA map ``x [H, W, cin]`` (cin 184 or
     368, pads zero), for the tests on the card.  ``kind`` of
     :data:`KINDS`: ``qkv`` and ``fc1`` (``ln`` the ``(gain, bias)`` of the
@@ -337,9 +369,12 @@ def gemm_variant(kind: str, x: torch.Tensor, w: torch.Tensor | None = None,
     (a 3x3 conv of the LayerNorm ``ln`` of ``x``, formed in the loader,
     and the skip: conv_after_body), ``before_up`` (a 3x3 conv 180->64,
     LeakyReLU), with ``w``, ``b`` the layer as the authors hold it; ``attention`` on a qkv map ``[H, W, 552]`` with ``table [225, 6]``
-    and ``shift``.  Returns ``{"out", "stats"}``: the output map (``[H, W,
-    552]``, ``[H, W, 368]``, ``[H, W, 184]`` or ``[H, W, 64]``) and, for
-    ``resid`` and ``conv``, the statistics ``[H, W, 2]`` it stored."""
+    and ``shift``.  ``alias``: the output map starts as a copy of
+    ``skip`` and is passed as the skip too, so the kernel reads the
+    residual from the map it writes, as proj and fc2 run in place.
+    Returns ``{"out", "stats"}``: the output map (``[H, W, 552]``, ``[H,
+    W, 368]``, ``[H, W, 184]`` or ``[H, W, 64]``) and, for ``resid`` and
+    ``conv``, the statistics ``[H, W, 2]`` it stored."""
     h, wd, cin = x.shape
     x = x.contiguous()
     width = {"qkv": QKVP, "fc1": HIDP, "before_up": FEAT}.get(kind, CP)
@@ -361,6 +396,8 @@ def gemm_variant(kind: str, x: torch.Tensor, w: torch.Tensor | None = None,
     lnp = torch.cat([_padded(t) for t in ln]).to(x.device) \
         if ln is not None else None
     skip = skip.contiguous() if skip is not None else None
+    if alias:
+        out = skip = skip.clone()
     grid = min(runtime.num_sms(), -(-h * wd // UNIT))
 
     def ptr(v):

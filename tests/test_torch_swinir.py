@@ -595,8 +595,11 @@ def test_the_plan_mirrors_the_cuda_source():
         and cs.gemm_stage_floats(64) == 6208
     assert f"Geo<184>::SMEM == {cs.gemm_smem_bytes(184)}" in src
     assert f"Geo<64>::SMEM == {cs.gemm_smem_bytes(64)}" in src
+    assert f"Geo<184>::STAGES == {cs.gemm_stages(184)}" in src
+    assert f"Geo<64>::STAGES == {cs.gemm_stages(64)}" in src
     for name, value in (("TM", cs.UNIT), ("KC", cs.STAGE_CHANNELS),
-                        ("STAGES", cs.STAGES), ("CP", cs.CP),
+                        ("MAX_STAGES", cs.MAX_STAGES),
+                        ("SMEM_MAX", cs.SMEM_MAX), ("CP", cs.CP),
                         ("HIDP", cs.HIDP)):
         assert _constant(src, name) == value, name
     assert "constexpr int HALF = TM * 4 + 8;" in src and cs.HALF == 520
@@ -615,6 +618,60 @@ def test_the_plan_mirrors_the_cuda_source():
     assert plan["workspace_floats"] == px * (4 * 184 + 552 + 2)
     assert 4 * px * 64 <= px * 552 and 368 <= 552
     assert cs.swinir_plan(8, 8, 132)["grid"] == 1
+
+
+#: the GEMM body's instances, each with its Geo<NT>, as prepare() sets
+#: their shared memory
+GEMM_INSTANCES = {
+    "swin_stl_linear_kernel<SW_LN, SW_STORE>": "CP",
+    "swin_stl_linear_kernel<SW_PLAIN, SW_RESID>": "CP",
+    "swin_stl_linear_kernel<SW_LN, SW_GELU>": "CP",
+    "swinir_conv3x3_kernel<CP, SW_PLAIN, SW_RESID>": "CP",
+    "swinir_conv3x3_kernel<CP, SW_LN, SW_RESID>": "CP",
+    "swinir_conv3x3_kernel<FEAT, SW_PLAIN, SW_LEAKY>": "FEAT"}
+
+
+def test_the_staged_epilogue_fits_every_gemm_instance():
+    from srcnn_cpp_tpu_torch.ops import cuda_swinir as cs
+
+    src = SWINIR_CU.read_text()
+    got = dict(re.findall(
+        r"cudaFuncSetAttribute\((\w+<[^>]*>),\s*"
+        r"cudaFuncAttributeMaxDynamicSharedMemorySize,\s*"
+        r"\(int\)Geo<(\w+)>::SMEM\)", src))
+    assert got == GEMM_INSTANCES
+    assert cs.SMEM_MAX == 232448
+    for kernel, width in got.items():
+        nt = {"CP": cs.CP, "FEAT": 64}[width]
+        stages, stage = cs.gemm_stages(nt), 4 * cs.gemm_stage_floats(nt)
+        # the ring, a unit's [128][nt] output tile, 2 mbarriers a stage and
+        # the tile's 2
+        tile = 4 * cs.UNIT * nt
+        smem = cs.gemm_smem_bytes(nt)
+        assert smem == stages * stage + tile + 16 * (stages + 1), kernel
+        assert smem <= cs.SMEM_MAX, kernel
+        # the ring is as deep as fits beside the tile, up to its deepest
+        assert stages == cs.MAX_STAGES or smem + stage + 16 > cs.SMEM_MAX
+        assert 2 <= stages <= cs.MAX_STAGES
+    assert (cs.gemm_stages(184), cs.gemm_smem_bytes(184)) == (3, 214848)
+    assert (cs.gemm_stages(64), cs.gemm_smem_bytes(64)) == (5, 157024)
+    assert 4 * cs.UNIT * 184 == 94208 and 4 * cs.UNIT * 64 == 32768
+
+
+def test_every_gemm_launch_of_a_frame_stages_its_epilogue(small):
+    from srcnn_cpp_tpu_torch import upscale_bgr_batch
+    from srcnn_cpp_tpu_torch.ops import cuda_swinir as cs
+
+    # 4 linears in each of 36 STLs, 6 RSTB convs, conv_after_body and
+    # conv_before_upsample
+    assert cs.gemm_launches(6, 6) == 36 * 4 + 8 == 152
+    assert cs.gemm_launches(2, 3) == 2 * 3 * 4 + 4
+    sched = cs.launch_schedule(6, 6)
+    assert cs.gemm_launches(6, 6) == len(sched) - 36 - 4 - 2
+    # the CPU path launches no GEMM
+    before = cs.swinir_fused.staged_epilogues
+    upscale_bgr_batch(_frames(1, 16, 16, 4), 2.0, small, device="cpu")
+    assert cs.swinir_fused.staged_epilogues == before
 
 
 def test_the_packed_buffers(small_recipe):
@@ -701,6 +758,8 @@ def test_kernel_ab_names_every_conv_body_instance():
             f"{ns}19rcan_conv3x3_kernelILi3EEEvPKfPf": ["C"],
             f"{sw}22swin_stl_linear_kernelILi1ELi0EEEvNS_4GemmE": ["D"],
             f"{sw}21swinir_conv3x3_kernelILi184ELi3EEEvNS_4GemmE": ["E"],
+            f"{sw}21swinir_conv3x3_kernelILi64ELi0ELi3EEEvNS_4GemmE"
+            "14CUtensorMap_st": ["H"],
             f"{sw}25swin_stl_attention_kernelEPKfS1_Pfiiif": ["F"],
             f"{ns}16vdsr_last_kernelEPKfPKhS1_Phii": ["G"]}
     assert conv_sass(code) == {
@@ -708,6 +767,7 @@ def test_kernel_ab_names_every_conv_body_instance():
         "rcan_conv3x3_kernel<3, 0>": ["C"],
         "swin_stl_linear_kernel<1, 0>": ["D"],
         "swinir_conv3x3_kernel<184, 3>": ["E"],
+        "swinir_conv3x3_kernel<64, 0, 3>": ["H"],
         "swin_stl_attention_kernel": ["F"]}
 
 
@@ -875,6 +935,79 @@ def test_cuda_the_attention_against_the_cpu_op(shift):
     assert not got[..., 180:].any()
 
 
+def _conv(x, w, b):
+    """A 3x3 conv of a token map ``x [H, W, 180]`` in float64, as a map."""
+    return F.conv2d(x.permute(2, 0, 1)[None].double(), w.double(), b.double(),
+                    padding=1)[0].permute(1, 2, 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw", [(37, 45), (96, 128)])
+@pytest.mark.parametrize("layer", ["proj", "fc2", "conv", "conv_ln"])
+def test_cuda_a_residual_gemm_in_place(layer, hw):
+    # the skip aliased to the output, as proj and fc2 run on the residual
+    # stream: the producer prefetches a unit's residual rows into the tile
+    # that then overwrites them; P is no multiple of the 128-pixel unit
+    from srcnn_cpp_tpu_torch.ops.cuda_swinir import gemm_variant, ln_stats
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    h, w = hw
+    g = torch.Generator().manual_seed(40)
+    skip = _tokens(h, w, 41)
+    ln = None
+    if layer == "fc2":
+        x = _tokens(h, w, 42, 368, 360)
+        wt, b = _linear_layer(180, 360, 43)
+        want = F.linear(x[..., :360].double(), wt.double(), b.double())
+    elif layer == "proj":
+        x = _tokens(h, w, 42)
+        wt, b = _linear_layer(180, 180, 43)
+        want = F.linear(x[..., :180].double(), wt.double(), b.double())
+    else:
+        x = _tokens(h, w, 42)
+        wt = torch.randn((180, 180, 3, 3), generator=g) * 0.02
+        b = torch.randn(180, generator=g) * 0.1
+        inp = x[..., :180].double()
+        if layer == "conv_ln":
+            ln = _ln(44)
+            inp = F.layer_norm(inp, (180,), ln[0].double(), ln[1].double(),
+                               1e-5)
+        want = _conv(inp, wt, b)
+    kind = {"proj": "resid", "fc2": "resid"}.get(layer, layer)
+    res = gemm_variant(kind, x.cuda(), wt, b, skip=skip.cuda(), ln=ln,
+                       alias=True)
+    got = res["out"].cpu()
+    _close(got[..., :180], skip[..., :180].double() + want,
+           f"{layer} + residual, in place")
+    assert not got[..., 180:].any()
+    if res["stats"] is not None:
+        _close(res["stats"].cpu(), ln_stats(got), "its LayerNorm statistics")
+
+
+#: sha256 of ``swinir_fused``'s output for one 1080p frame
+#: (``portbench.frames.make(FRAME_SEED, 1, (1080, 1920), "cpu")``, the
+#: cell's seeded recipe), as the GEMM body computed it when its epilogue
+#: still loaded the residual and stored from registers: staging the
+#: epilogue moves bytes, not arithmetic, so the output stays bit-equal
+FRAME_SEED = 2 ** 31 + 26
+FRAME_DIGEST = ("efffe7ddc70f794fa56b4c8ce0d874b22ad62f7cebc75c35d9188c14f37d516f")
+
+
+@pytest.mark.cuda
+def test_cuda_swinir_fused_keeps_its_1080p_digest(swinir):
+    import hashlib
+
+    from portbench.frames import make
+    from srcnn_cpp_tpu_torch.ops.cuda_swinir import swinir_fused
+
+    w = _card(swinir)
+    x = make(FRAME_SEED, 1, (1080, 1920), "cpu").permute(0, 3, 1, 2) \
+        .contiguous().cuda()
+    got = swinir_fused(x, w, (2160, 3840)).cpu().numpy()
+    assert hashlib.sha256(got.tobytes()).hexdigest() == FRAME_DIGEST
+
+
 def _card_frames(h, w, seed):
     return torch.from_numpy(_frames(1, h, w, seed)).cuda() \
         .permute(0, 3, 1, 2).contiguous()
@@ -892,11 +1025,13 @@ def test_cuda_swinir_fused_matches_the_reference(swinir, hw):
     h, wd = hw
     x = _card_frames(h, wd, 30)
     launches, windows = swinir_fused.launches, swinir_fused.windows
+    staged = swinir_fused.staged_epilogues
     got = swinir_fused(x, w, (2 * h, 2 * wd))
     torch.cuda.synchronize()
     assert swinir_fused.launches == launches + 1
     assert swinir_fused.windows == windows + 36 * (-(-h // 8)) \
         * (-(-wd // 8))
+    assert swinir_fused.staged_epilogues == staged + 152
     ref = swinir_bgr.load(RECIPE, "cuda")
     want = swinir_bgr.upscale_frame(x[0].permute(1, 2, 0), ref, 2.0)
     mx, frac = _lsb(got[0].permute(1, 2, 0).cpu(), want.cpu())
