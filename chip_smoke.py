@@ -103,6 +103,13 @@ read just after:
   ``swin_stl_*``; ms a frame
   beside the plain path and its bound.
 
+Phases 25-27 also run one call under a trace, where the GEMM bodies run
+their probed instances: its output bit-equal to the untraced call's, and
+the stall counters (``utils.profiling.kernel_counters``) printed by kind,
+each kind's launches, units and stages as the launch schedule counts them
+and each wait inside its units' cycles; phase 1 fails unless every kind's
+probed instance was compiled (and, as for every kernel, on a spill).
+
 Each phase from 7 on prints its wall time.
 
 Any failure raises and the exit code is non-zero.  The last line of
@@ -292,6 +299,15 @@ def main() -> int:
            "not read (cuobjdump absent or failed)"))
     spilled = sum(int(n) for n in re.findall(r"(\d+) bytes spill", log))
     say(f"  ptxas: {spilled} bytes of spill stores and loads in all kernels")
+    # the GEMM bodies' probed twins (csrc/probe.cuh: PROBE, mangled Lb1E)
+    # are among them, one a kind
+    from srcnn_cpp_tpu_torch.ops.cuda_swinir import PROBE_KINDS
+    probed = set(re.findall(r"Compiling entry function '(\w+Lb1E\w*)'", log))
+    say(f"  ptxas: {len(probed)} probed GEMM instances compiled, "
+        f"{len(PROBE_KINDS)} kinds counted")
+    if len(probed) != len(PROBE_KINDS):
+        raise AssertionError(f"{len(probed)} probed instances, not one for "
+                             f"each of the {len(PROBE_KINDS)} kinds")
     from srcnn_cpp_tpu_torch.ops import cuda_srcnn
     say(f"  conv (K1/K4/K5): {cuda_srcnn.CONSUMERS} consumer warpgroups at "
         f"setmaxnreg {cuda_srcnn.REGS[0]}, the helper warpgroup at "
@@ -1737,8 +1753,10 @@ def phase_vdsr(e: Extra, launches: dict, max_err: dict, ms: dict,
     of 8 frames of 1080x1920 through ``upscale_planar`` at x2."""
     from srcnn_cpp_tpu_torch.ops.cuda_merge import merge_ycrcb_to_bgr_fused
     from srcnn_cpp_tpu_torch.ops.cuda_resize import pre_upscale_fused
+    from srcnn_cpp_tpu_torch.ops.cuda_swinir import probe_counts
     from srcnn_cpp_tpu_torch.ops.cuda_vdsr import vdsr_y_fused, vdsr_y_plain
     from srcnn_cpp_tpu_torch.pipeline import upscale_planar
+    from srcnn_cpp_tpu_torch.utils.profiling import kernel_counters
     from srcnn_cpp_tpu_torch.weights import load_vdsr_weights
 
     b, h, w = 8, 1080, 1920
@@ -1764,6 +1782,15 @@ def phase_vdsr(e: Extra, launches: dict, max_err: dict, ms: dict,
         err = max(err, lsb_close(y[i], vdsr_y_plain(up[i, 0], weights),
                                  f"plane {i} of {b} [{oh},{ow}]"))
     max_err["vdsr_y_fused"] = err
+    # traced, the chain runs probed: bit-equal, and counted as planned
+    kernel_counters(reset=True)
+    probed = []
+    kernels_named(lambda: probed.append(vdsr_y_fused(up[:, 0], weights)),
+                  "vdsr_")
+    assert_equal(probed[0], y, "vdsr_y_fused traced vs untraced")
+    check_counters(kernel_counters(reset=True), probe_counts(
+        {("conv3x3", "vdsr"): len(weights.layers) - 2}, b, oh, ow),
+        f"a call of {b} planes of {oh}x{ow}")
 
     def plain():
         for i in range(b):
@@ -1782,6 +1809,32 @@ def phase_vdsr(e: Extra, launches: dict, max_err: dict, ms: dict,
         f"{2 * macs * npix / (ms[name] * 1e-3) / 1e12:.1f} TFLOP/s of "
         f"{TF32_FLOPS / 1e12:.0f} (dense TF32), {macs} MACs a pixel "
         f"({e.gpu})")
+
+
+def check_counters(found: dict, expect: dict, what: str) -> None:
+    """Print the GEMM bodies' stall counters of a traced run
+    (``utils.profiling.kernel_counters``) by kind: cycles of a unit (of one
+    consumer warpgroup), of them waiting on ``full`` and in the epilogue;
+    the producer's cycles filling a stage and waiting on ``empty`` a
+    stage.  Fails unless the kinds, launches, units and stages are
+    ``expect``'s (``{(body, kind): (launches, units, stages)}``) and every
+    wait lies inside its units' cycles."""
+    from srcnn_cpp_tpu_torch.ops.cuda_swinir import probe_tally
+
+    got = {(body, kind): c for body, kinds in found.items()
+           for kind, c in kinds.items()}
+    for (body, kind), c in sorted(got.items()):
+        u, st = 2 * c["units"], c["stages"]
+        say(f"  counters {body}.{kind} ({what}): {c['launches']} launches, "
+            f"{c['units']} units, {st} stages; a unit "
+            f"{c['unit_cycles'] / u:,.0f} cycles, waiting on full "
+            f"{c['full_wait_cycles'] / u:,.0f}, "
+            f"epilogue {c['epilogue_cycles'] / u:,.0f}; the producer a stage: "
+            f"fill {c['fill_cycles'] / st:,.0f}, waiting on empty "
+            f"{c['empty_wait_cycles'] / st:,.0f}")
+    counts = probe_tally(found)
+    if counts != expect:
+        raise AssertionError(f"counters {counts}, the schedule's {expect}")
 
 
 def kernels_named(fn, part: str) -> list[str]:
@@ -1805,9 +1858,11 @@ def phase_rcan(e: Extra, launches: dict, max_err: dict, ms: dict,
     """RCAN x2 at the shapes of the benchmark's RCAN cell: a batch of 4
     frames of 1080x1920 through ``upscale_planar`` at x2."""
     from srcnn_cpp_tpu_torch.ops.cuda_rcan import (launch_schedule,
-                                                   rcan_fused, rcan_plain,
-                                                   rcan_plan)
+                                                   probed_kinds, rcan_fused,
+                                                   rcan_plain, rcan_plan)
+    from srcnn_cpp_tpu_torch.ops.cuda_swinir import probe_counts
     from srcnn_cpp_tpu_torch.pipeline import upscale_planar
+    from srcnn_cpp_tpu_torch.utils.profiling import kernel_counters
     from srcnn_cpp_tpu_torch.weights import load_rcan_weights
 
     b, h, w = 4, 1080, 1920
@@ -1840,7 +1895,13 @@ def phase_rcan(e: Extra, launches: dict, max_err: dict, ms: dict,
     max_err["rcan_fused"] = err
     g, k = weights.groups, weights.blocks
     kernels = b * len(launch_schedule(g, k))
-    traced = kernels_named(lambda: rcan_fused(x, weights, (oh, ow)), "rcan_")
+    kernel_counters(reset=True)
+    probed = []
+    traced = kernels_named(
+        lambda: probed.append(rcan_fused(x, weights, (oh, ow))), "rcan_")
+    assert_equal(probed[0], out, "rcan_fused traced vs untraced")
+    check_counters(kernel_counters(reset=True), probe_counts(
+        probed_kinds(g, k), b, h, w), f"a call of {b} frames of {h}x{w}")
     ca = sorted({n for n in traced if "rcan_ca_" in n})
     say(f"  trace of one call: {len(traced)} RCAN kernels ({kernels} "
         f"planned, {kernels // b} a frame), CA kernels {ca or 'none'}")
@@ -1882,10 +1943,13 @@ def phase_swinir(e: Extra, launches: dict, max_err: dict, ms: dict,
     of 2 frames of 1080x1920 through ``upscale_planar`` at x2."""
     from srcnn_cpp_tpu_torch.ops.cuda_swinir import (gemm_launches,
                                                      launch_schedule,
+                                                     probe_counts,
+                                                     probed_kinds,
                                                      swinir_fused,
                                                      swinir_plain,
                                                      swinir_plan)
     from srcnn_cpp_tpu_torch.pipeline import upscale_planar
+    from srcnn_cpp_tpu_torch.utils.profiling import kernel_counters
     from srcnn_cpp_tpu_torch.weights import load_swinir_weights
 
     b, h, w = 2, 1080, 1920
@@ -1921,6 +1985,16 @@ def phase_swinir(e: Extra, launches: dict, max_err: dict, ms: dict,
             raise AssertionError(f"SwinIR frame {i}: max {mx}, frac {frac}")
         err, off = max(err, mx), max(off, frac)
     max_err["swinir_fused"] = err
+    # traced, both GEMM bodies run probed: bit-equal, and counted as
+    # planned (the table of PERF.md, section 6)
+    kernel_counters(reset=True)
+    probed = []
+    kernels_named(lambda: probed.append(swinir_fused(x, weights, (oh, ow))),
+                  "swin_stl_")
+    assert_equal(probed[0], out, "swinir_fused traced vs untraced")
+    check_counters(kernel_counters(reset=True), probe_counts(
+        probed_kinds(weights.groups, weights.depth), b, h, w),
+        f"a call of {b} frames of {h}x{w}")
     kernels = b * len(launch_schedule(weights.groups, weights.depth))
     # the launches of a call do not depend on the frame size: counted on 2
     # frames of 64x96.  In this process CUPTI lost the first 2 kernels of a

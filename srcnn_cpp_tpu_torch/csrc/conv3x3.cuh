@@ -33,6 +33,8 @@
 
 #include <cuda_runtime.h>
 
+#include "probe.cuh"
+
 namespace srcnn_hopper {
 
 enum Epilogue : int { EPI_RELU = 0, EPI_POOL = 1, EPI_SKIP = 2,
@@ -115,14 +117,17 @@ __device__ __forceinline__ void ca_finish(const float* pool, int parts,
 // conv that wrote them): it stages them in two stages of its shared memory.
 constexpr int CA_PARTS_MAX = 550;
 
-// Opt every RCAN instantiation into its shared memory; once per call.
-int rcan_conv3x3_prepare();
+// Opt every RCAN instantiation into its shared memory, and the probed ones
+// too where `probed`; once per call.
+int rcan_conv3x3_prepare(bool probed);
 
 // Enqueue one 64->64 layer with epilogue `epi` and loader `load` on `s`:
 // the persistent grid of `grid` blocks (ops/cuda_vdsr.py::vdsr_plan) over
-// an H x W frame.
+// an H x W frame.  `probes`: the counter records (probe.cuh), whose record
+// of the instance's kind the probed instance adds to, or null.
 cudaError_t rcan_conv3x3(Epilogue epi, Loader load, const float* in,
                          float* out, const float* wl, int H, int W,
-                         EpiArgs ea, LoadArgs la, int grid, cudaStream_t s);
+                         EpiArgs ea, LoadArgs la, int grid, cudaStream_t s,
+                         Probe* probes);
 
 }  // namespace srcnn_hopper

@@ -315,20 +315,23 @@ cudaError_t rcan_tail(const float* hr, const float* w, uint8_t* out, int H,
 // RCAB's CA_FLOATS; w_tail: TAIL_FLOATS.  ws: the workspace (MAPS maps of
 // H x W x 64, one of 2H x 2W x 64, grid * POOL_PARTS * 64 pool floats;
 // 16-byte aligned).  (grid, smem_bytes): ops/cuda_vdsr.py::vdsr_plan.
+// probes: the counter records (probe.cuh), or null; given, the 64->64
+// convs run probed.
 extern "C" int rcan_x2_u8(const uint8_t* bgr, long long frame_stride,
                           const float* w_head, const float* w_mid,
                           const float* w_ca, const float* w_tail, float* ws,
                           uint8_t* out, int B, int H, int W, int groups,
                           int blocks, int grid, int smem_bytes,
-                          void* stream) {
+                          void* stream, void* probes) {
   if (smem_bytes != CONV3X3_SMEM_BYTES || grid <= 0 ||
       grid * POOL_PARTS > CA_PARTS_MAX || groups <= 0 || blocks <= 0 ||
       (reinterpret_cast<uintptr_t>(w_mid) & 15) != 0 ||
       (reinterpret_cast<uintptr_t>(ws) & 15) != 0 ||
       4LL * H * W >= (1LL << 31))
     return (int)cudaErrorInvalidValue;   // a plan for another kernel
-  const int err = rcan_conv3x3_prepare();
+  const int err = rcan_conv3x3_prepare(probes != nullptr);
   if (err != 0) return err;
+  Probe* pr = static_cast<Probe*>(probes);
   cudaError_t e = cudaSuccess;
   cudaStream_t s = (cudaStream_t)stream;
   const long long px = (long long)H * W;
@@ -361,18 +364,18 @@ extern "C" int rcan_x2_u8(const uint8_t* bgr, long long frame_stride,
       for (int k = 0; k < blocks; ++k) {
         if (k == 0) {
           e = rcan_conv3x3(EPI_RELU, LOAD_PLAIN, gin, am, wl, H, W, none,
-                           plain, grid, s);
+                           plain, grid, s, pr);
         } else {
           float* x = (blocks - 1 - k) % 2 == 0 ? xm : gout;
           const LoadArgs apply{tm, pool, wca - CA_FLOATS, x, nullptr, parts,
                                (float)px, k > 1};
           e = rcan_conv3x3(EPI_RELU, LOAD_APPLY, xprev, am, wl, H, W, none,
-                           apply, grid, s);
+                           apply, grid, s, pr);
           xprev = x;
         }
         if (e != cudaSuccess) return (int)e;
         e = rcan_conv3x3(EPI_POOL, LOAD_PLAIN, am, tm, wl + layer, H, W,
-                         pooled, plain, grid, s);
+                         pooled, plain, grid, s, pr);
         if (e != cudaSuccess) return (int)e;
         wl += 2 * layer;
         wca += CA_FLOATS;
@@ -381,20 +384,20 @@ extern "C" int rcan_x2_u8(const uint8_t* bgr, long long frame_stride,
       const LoadArgs last{tm, pool, wca - CA_FLOATS, nullptr, nullptr, parts,
                           (float)px, blocks > 1};
       e = rcan_conv3x3(EPI_SKIP, LOAD_APPLY_LAST, xprev, gout, wl, H, W,
-                       skip, last, grid, s);
+                       skip, last, grid, s, pr);
       if (e != cudaSuccess) return (int)e;
       wl += layer;
       gin = gout;
     }
     const EpiArgs long_skip{hm, nullptr, 0, 0};
     e = rcan_conv3x3(EPI_SKIP, LOAD_PLAIN, gin, xm, wl, H, W, long_skip,
-                     plain, grid, s);
+                     plain, grid, s, pr);
     if (e != cudaSuccess) return (int)e;
     wl += layer;
     for (int q = 0; q < 4; ++q) {
       EpiArgs shuffle{nullptr, nullptr, q / 2, q % 2};
       e = rcan_conv3x3(EPI_SHUFFLE, LOAD_PLAIN, xm, hr, wl, H, W, shuffle,
-                       plain, grid, s);
+                       plain, grid, s, pr);
       if (e != cudaSuccess) return (int)e;
       wl += layer;
     }
@@ -413,7 +416,8 @@ extern "C" int rcan_x2_u8(const uint8_t* bgr, long long frame_stride,
 // from t, the `parts` x 64 pool sums ca_pool and the CA weights ca, s over
 // the H x W pixels, and write s (64 floats) where s is not null (in is
 // grouped where in_grouped); LOAD_APPLY stores in + s t to x, grouped.
-// RCAN's instances only.
+// RCAN's instances only; probed where `probes` (the counter records) is
+// given.
 extern "C" int rcan_conv3x3_f32(int epi, int load, const float* in,
                                 float* out, const float* wl,
                                 const float* skip, float* pool,
@@ -421,18 +425,18 @@ extern "C" int rcan_conv3x3_f32(int epi, int load, const float* in,
                                 const float* ca, float* x, float* s,
                                 int parts, int in_grouped, int dy, int dx,
                                 int H, int W, int grid, int smem_bytes,
-                                void* stream) {
+                                void* stream, void* probes) {
   if (smem_bytes != CONV3X3_SMEM_BYTES || grid <= 0 || epi < EPI_RELU ||
       epi > EPI_SHUFFLE || load < LOAD_PLAIN ||
       load > LOAD_APPLY_LAST || (reinterpret_cast<uintptr_t>(wl) & 15) != 0 ||
       4LL * H * W >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
-  const int err = rcan_conv3x3_prepare();
+  const int err = rcan_conv3x3_prepare(probes != nullptr);
   if (err != 0) return err;
   return (int)rcan_conv3x3(
       (Epilogue)epi, (Loader)load, in, out, wl, H, W,
       EpiArgs{skip, pool, dy, dx},
       LoadArgs{t, ca_pool, ca, x, s, parts, (float)((long long)H * W),
                in_grouped},
-      grid, (cudaStream_t)stream);
+      grid, (cudaStream_t)stream, static_cast<Probe*>(probes));
 }

@@ -75,7 +75,10 @@
 // again.  What then paces the body is the producer: its loads of each
 // stage's activations, through registers PF stages ahead, leave the
 // consumers waiting on `full` for 32-49 % of a unit (clock64 counts
-// of an instrumented build on an H100, in every GEMM kind).
+// of an instrumented build on an H100, in every GEMM kind).  Each instance
+// has a probed twin (PROBE = true, probe.cuh) that counts those waits, the
+// epilogues and the producer's fills; the launchers run it only when given
+// the counter records.
 //
 // Buffers (one call's workspace, ops/cuda_swinir.py::swinir_plan), token
 // maps of 184 floats a pixel: F (f0, later conv_before_upsample's 64-map),
@@ -89,6 +92,7 @@
 #include <stdint.h>
 
 #include "conv3x3.cuh"
+#include "probe.cuh"
 #include "wgmma.cuh"
 
 namespace srcnn_hopper {
@@ -380,13 +384,16 @@ __device__ __forceinline__ void free_tile(const Gemm& g, float* tile,
   }
 }
 
-template <int NT, int TAPS, int LOAD, int EPI>
+template <int NT, int TAPS, int LOAD, int EPI, bool PROBE>
 __device__ __forceinline__ void producer(const Gemm& g, float* smem,
                                          uint64_t* full, uint64_t* empty,
                                          uint64_t* ready, uint64_t* staged,
-                                         const CUtensorMap* map) {
+                                         const CUtensorMap* map,
+                                         Probe* probe) {
   using G = Geo<NT>;
   const int tid = threadIdx.x & 127;
+  ProducerTally tl;
+  if constexpr (PROBE) tl.start();
   const long long P = (long long)g.H * g.W;
   const int count = (int)((P + TM - 1) / TM) * g.ntiles;
   const int ksteps = TAPS * g.kchunks;
@@ -449,7 +456,10 @@ __device__ __forceinline__ void producer(const Gemm& g, float* smem,
         if (LOAD == SW_LN && TAPS > 1 && q == 0 && tap > 0) tap_stats(tap);
         if (tid == 0 && ks == h0 && i > 0)
           store_tile<NT>(g, map, tile, staged, i - 1, u - gridDim.x);
-        bar_wait(&empty[s], pass_parity<G::STAGES>(n) ^ 1u);
+        if constexpr (PROBE)
+          tl.wait_empty(&empty[s], pass_parity<G::STAGES>(n) ^ 1u);
+        else
+          bar_wait(&empty[s], pass_parity<G::STAGES>(n) ^ 1u);
         float* stg = smem + s * G::STAGE;
         if (tid == 0) {
           bar_arrive_tx(&full[s], 2 * G::B_MAT * 4);
@@ -498,6 +508,7 @@ __device__ __forceinline__ void producer(const Gemm& g, float* smem,
                    blockIdx.x + (i - 1) * gridDim.x);
     bulk_wait_read();                      // before the block's exit
   }
+  if constexpr (PROBE) tl.flush(probe, n, tid);
 }
 
 __device__ __forceinline__ float gelu(float v) {
@@ -595,14 +606,15 @@ __device__ __forceinline__ void epilogue(const Gemm& g, float (&acc)[NT / 8][4],
   }
 }
 
-template <int NT, int TAPS, int EPI>
+template <int NT, int TAPS, int EPI, bool PROBE>
 __device__ __forceinline__ void consumer(const Gemm& g, float* smem,
                                          uint64_t* full, uint64_t* empty,
                                          uint64_t* ready, uint64_t* staged,
-                                         int c) {
+                                         int c, Probe* probe) {
   using G = Geo<NT>;
   constexpr int STAGES = G::STAGES;
   const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
+  ConsumerTally tl;
   const long long P = (long long)g.H * g.W;
   const int count = (int)((P + TM - 1) / TM) * g.ntiles;
   const int ksteps = TAPS * g.kchunks;
@@ -617,7 +629,10 @@ __device__ __forceinline__ void consumer(const Gemm& g, float* smem,
     int prev = 0;
     for (int k = 0; k < ksteps; ++k, ++n) {
       const int s = n % STAGES;
-      bar_wait(&full[s], pass_parity<STAGES>(n));
+      if constexpr (PROBE)
+        tl.wait_full(&full[s], pass_parity<STAGES>(n), k);
+      else
+        bar_wait(&full[s], pass_parity<STAGES>(n));
       const float* st = smem + s * G::STAGE;
       wg_fence();
 #pragma unroll
@@ -641,6 +656,7 @@ __device__ __forceinline__ void consumer(const Gemm& g, float* smem,
       prev = s;
     }
     wg_wait<0>();
+    if constexpr (PROBE) tl.epilogue_start();
     fence_acc(acc);
     bar_arrive(&empty[prev]);
     // the tile is free (the last unit's store has read it) and holds this
@@ -653,11 +669,14 @@ __device__ __forceinline__ void consumer(const Gemm& g, float* smem,
     // these generic-proxy stores are read by the bulk store (async proxy)
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     bar_arrive(staged);
+    if constexpr (PROBE) tl.unit_end();
   }
+  if constexpr (PROBE) tl.flush(probe, c, tid);
 }
 
-template <int NT, int TAPS, int LOAD, int EPI>
-__device__ __forceinline__ void gemm(const Gemm& g, const CUtensorMap* map) {
+template <int NT, int TAPS, int LOAD, int EPI, bool PROBE>
+__device__ __forceinline__ void gemm(const Gemm& g, const CUtensorMap* map,
+                                     Probe* probe) {
   using G = Geo<NT>;
   extern __shared__ __align__(128) float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
@@ -677,23 +696,27 @@ __device__ __forceinline__ void gemm(const Gemm& g, const CUtensorMap* map) {
   __syncthreads();
   const int wg = threadIdx.x / 128;
   if (wg == NCONS)
-    producer<NT, TAPS, LOAD, EPI>(g, smem, full, empty, ready, staged, map);
+    producer<NT, TAPS, LOAD, EPI, PROBE>(g, smem, full, empty, ready, staged,
+                                         map, probe);
   else
-    consumer<NT, TAPS, EPI>(g, smem, full, empty, ready, staged, wg);
+    consumer<NT, TAPS, EPI, PROBE>(g, smem, full, empty, ready, staged, wg,
+                                   probe);
 }
 
 // An STL's token-wise linear: 1 tap, 184 output channels a tile.
-template <int LOAD, int EPI>
+template <int LOAD, int EPI, bool PROBE>
 __global__ void __launch_bounds__(NTHREADS, 1)
-swin_stl_linear_kernel(Gemm g, const __grid_constant__ CUtensorMap out) {
-  gemm<CP, 1, LOAD, EPI>(g, &out);
+swin_stl_linear_kernel(Gemm g, const __grid_constant__ CUtensorMap out,
+                       Probe* probe) {
+  gemm<CP, 1, LOAD, EPI, PROBE>(g, &out, probe);
 }
 
 // A 3x3 conv outside the STLs: NT output channels a tile.
-template <int NT, int LOAD, int EPI>
+template <int NT, int LOAD, int EPI, bool PROBE>
 __global__ void __launch_bounds__(NTHREADS, 1)
-swinir_conv3x3_kernel(Gemm g, const __grid_constant__ CUtensorMap out) {
-  gemm<NT, 9, LOAD, EPI>(g, &out);
+swinir_conv3x3_kernel(Gemm g, const __grid_constant__ CUtensorMap out,
+                      Probe* probe) {
+  gemm<NT, 9, LOAD, EPI, PROBE>(g, &out, probe);
 }
 
 // cuTensorMapEncodeTiled (libcuda's), found through the runtime's
@@ -740,47 +763,65 @@ bool out_map(const Gemm& g, CUtensorMap* map) {
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// probe: the kind's counter record, whose probed twin runs, or null
 template <int LOAD, int EPI>
-cudaError_t linear(const Gemm& g, int grid, cudaStream_t s) {
+cudaError_t linear(const Gemm& g, int grid, cudaStream_t s, Probe* probe) {
   CUtensorMap out;
   if (!out_map<CP, EPI>(g, &out)) return cudaErrorInvalidValue;
-  swin_stl_linear_kernel<LOAD, EPI>
-      <<<grid, NTHREADS, Geo<CP>::SMEM, s>>>(g, out);
+  if (probe != nullptr)
+    swin_stl_linear_kernel<LOAD, EPI, true>
+        <<<grid, NTHREADS, Geo<CP>::SMEM, s>>>(g, out, probe);
+  else
+    swin_stl_linear_kernel<LOAD, EPI, false>
+        <<<grid, NTHREADS, Geo<CP>::SMEM, s>>>(g, out, nullptr);
   return cudaGetLastError();
 }
 
 template <int NT, int LOAD, int EPI>
-cudaError_t conv3x3(const Gemm& g, int grid, cudaStream_t s) {
+cudaError_t conv3x3(const Gemm& g, int grid, cudaStream_t s, Probe* probe) {
   CUtensorMap out;
   if (!out_map<NT, EPI>(g, &out)) return cudaErrorInvalidValue;
-  swinir_conv3x3_kernel<NT, LOAD, EPI>
-      <<<grid, NTHREADS, Geo<NT>::SMEM, s>>>(g, out);
+  if (probe != nullptr)
+    swinir_conv3x3_kernel<NT, LOAD, EPI, true>
+        <<<grid, NTHREADS, Geo<NT>::SMEM, s>>>(g, out, probe);
+  else
+    swinir_conv3x3_kernel<NT, LOAD, EPI, false>
+        <<<grid, NTHREADS, Geo<NT>::SMEM, s>>>(g, out, nullptr);
   return cudaGetLastError();
 }
 
-int prepare() {
+template <bool PROBE>
+int opt_in_all() {
   const cudaError_t errs[] = {
-      cudaFuncSetAttribute(swin_stl_linear_kernel<SW_LN, SW_STORE>,
+      cudaFuncSetAttribute(swin_stl_linear_kernel<SW_LN, SW_STORE, PROBE>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)Geo<CP>::SMEM),
-      cudaFuncSetAttribute(swin_stl_linear_kernel<SW_PLAIN, SW_RESID>,
+      cudaFuncSetAttribute(swin_stl_linear_kernel<SW_PLAIN, SW_RESID, PROBE>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)Geo<CP>::SMEM),
-      cudaFuncSetAttribute(swin_stl_linear_kernel<SW_LN, SW_GELU>,
+      cudaFuncSetAttribute(swin_stl_linear_kernel<SW_LN, SW_GELU, PROBE>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)Geo<CP>::SMEM),
-      cudaFuncSetAttribute(swinir_conv3x3_kernel<CP, SW_PLAIN, SW_RESID>,
+      cudaFuncSetAttribute(
+          swinir_conv3x3_kernel<CP, SW_PLAIN, SW_RESID, PROBE>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Geo<CP>::SMEM),
+      cudaFuncSetAttribute(swinir_conv3x3_kernel<CP, SW_LN, SW_RESID, PROBE>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)Geo<CP>::SMEM),
-      cudaFuncSetAttribute(swinir_conv3x3_kernel<CP, SW_LN, SW_RESID>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)Geo<CP>::SMEM),
-      cudaFuncSetAttribute(swinir_conv3x3_kernel<FEAT, SW_PLAIN, SW_LEAKY>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)Geo<FEAT>::SMEM)};
+      cudaFuncSetAttribute(
+          swinir_conv3x3_kernel<FEAT, SW_PLAIN, SW_LEAKY, PROBE>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Geo<FEAT>::SMEM)};
   for (const cudaError_t err : errs)
     if (err != cudaSuccess) return (int)err;
-  return rcan_conv3x3_prepare();
+  return 0;
+}
+
+// Opt the instances into their shared memory, and the probed twins where
+// `probed`; once per call.
+int prepare(bool probed) {
+  int err = opt_in_all<false>();
+  if (err == 0 && probed) err = opt_in_all<true>();
+  return err != 0 ? err : rcan_conv3x3_prepare(probed);
 }
 
 // --- window attention ----------------------------------------------------------
@@ -1037,14 +1078,16 @@ Gemm gemm_args(const float* in, float* out, const float* w, int wfloats,
 // w_tail: RCAN's tail buffer (the weights and biases times 255).  ws: the
 // workspace, P x (4 x 184 + 552 + 2) floats, P = H x W (16-byte aligned).
 // grid: the GEMMs' persistent grid; up_grid, up_smem: the upsampler's plan
-// (ops/cuda_vdsr.py::vdsr_plan).  scale: 30 ** -0.5 in float32.
+// (ops/cuda_vdsr.py::vdsr_plan).  scale: 30 ** -0.5 in float32.  probes:
+// the counter records (probe.cuh), or null; given, both GEMM bodies run
+// probed.
 extern "C" int swinir_x2_u8(const uint8_t* bgr, long long frame_stride,
                             const float* w_head, const float* w_stl,
                             const float* w_conv, const float* w_up,
                             const float* w_tail, float* ws, uint8_t* out,
                             int B, int H, int W, int groups, int depth,
                             int grid, int up_grid, int up_smem, float scale,
-                            void* stream) {
+                            void* stream, void* probes) {
   if (H % WIN != 0 || W % WIN != 0 || H <= 0 || W <= 0 || groups <= 0 ||
       depth <= 0 || grid <= 0 || up_grid <= 0 ||
       up_smem != CONV3X3_SMEM_BYTES ||
@@ -1054,8 +1097,9 @@ extern "C" int swinir_x2_u8(const uint8_t* bgr, long long frame_stride,
       (reinterpret_cast<uintptr_t>(ws) & 15) != 0 ||
       4LL * H * W >= (1LL << 31))
     return (int)cudaErrorInvalidValue;   // a plan for another kernel
-  int err = prepare();
+  int err = prepare(probes != nullptr);
   if (err != 0) return err;
+  Probe* pr = static_cast<Probe*>(probes);
   cudaError_t e = cudaSuccess;
   cudaStream_t s = (cudaStream_t)stream;
   const long long P = (long long)H * W;
@@ -1080,43 +1124,46 @@ extern "C" int swinir_x2_u8(const uint8_t* bgr, long long frame_stride,
         const float* x = i == 0 ? G : X;
         e = linear<SW_LN, SW_STORE>(
             gemm_args(x, Q, wl + QKV_OFF, QKV_W, nullptr, wl + LN1_OFF, H,
-                      W, CP, KCH, 3, QKVP, S), grid, s);
+                      W, CP, KCH, 3, QKVP, S), grid, s,
+            probe_of(pr, PROBE_QKV));
         if (e != cudaSuccess) return (int)e;
         e = attention(Q, wl + TAB_OFF, O, H, W, i % 2 ? WIN / 2 : 0, scale,
                       s);
         if (e != cudaSuccess) return (int)e;
         e = linear<SW_PLAIN, SW_RESID>(
             gemm_args(O, X, wl + PROJ_OFF, PROJ_W, x, nullptr, H, W, CP, KCH,
-                      1, CP, nullptr, S), grid, s);
+                      1, CP, nullptr, S), grid, s, probe_of(pr, PROBE_PROJ));
         if (e != cudaSuccess) return (int)e;
         e = linear<SW_LN, SW_GELU>(
             gemm_args(X, Q, wl + FC1_OFF, FC1_W, nullptr, wl + LN2_OFF, H, W,
-                      CP, KCH, 2, HIDP, S), grid, s);
+                      CP, KCH, 2, HIDP, S), grid, s, probe_of(pr, PROBE_FC1));
         if (e != cudaSuccess) return (int)e;
         e = linear<SW_PLAIN, SW_RESID>(
             gemm_args(Q, X, wl + FC2_OFF, FC2_W, X, nullptr, H, W, HIDP,
-                      KCH_HID, 1, CP, nullptr, S), grid, s);
+                      KCH_HID, 1, CP, nullptr, S), grid, s,
+            probe_of(pr, PROBE_FC2));
         if (e != cudaSuccess) return (int)e;
       }
       e = conv3x3<CP, SW_PLAIN, SW_RESID>(
           gemm_args(X, G, w_conv + (size_t)r * CONV_FLOATS, CONV_W, G,
-                    nullptr, H, W, CP, KCH, 1, CP, nullptr, S), grid, s);
+                    nullptr, H, W, CP, KCH, 1, CP, nullptr, S), grid, s,
+          probe_of(pr, PROBE_CONV));
       if (e != cudaSuccess) return (int)e;
     }
     // the final LayerNorm in conv_after_body's loader
     e = conv3x3<CP, SW_LN, SW_RESID>(gemm_args(G, X, after_body, CONV_W, F,
                                                norm, H, W, CP, KCH, 1, CP, S),
-                                     grid, s);
+                                     grid, s, probe_of(pr, PROBE_CONV));
     if (e != cudaSuccess) return (int)e;
     e = conv3x3<FEAT, SW_PLAIN, SW_LEAKY>(
         gemm_args(X, F, before_up, BEFORE_W, nullptr, nullptr, H, W, CP, KCH,
-                  1, FEAT), grid, s);
+                  1, FEAT), grid, s, probe_of(pr, PROBE_BEFORE_UP));
     if (e != cudaSuccess) return (int)e;
     for (int q = 0; q < 4; ++q) {
       const EpiArgs shuffle{nullptr, nullptr, q / 2, q % 2};
       e = rcan_conv3x3(EPI_SHUFFLE, LOAD_PLAIN, F, Q,
                        w_up + (size_t)q * CONV3X3_LAYER_FLOATS, H, W, shuffle,
-                       LoadArgs{}, up_grid, s);
+                       LoadArgs{}, up_grid, s, pr);
       if (e != cudaSuccess) return (int)e;
     }
     e = rcan_tail(Q, w_tail, out + (size_t)b * 3 * 4 * P, 2 * H, 2 * W, s);
@@ -1131,45 +1178,49 @@ extern "C" int swinir_x2_u8(const uint8_t* bgr, long long frame_stride,
 // 180->180 conv (the skip, its statistics into stats), 4 conv_after_body
 // (the final LayerNorm in the loader, from stats; the skip), 5
 // conv_before_upsample (LeakyReLU); and 6, the attention of one layer (w:
-// the table, cin the shift).
+// the table, cin the shift).  probes: the counter records, or null; given,
+// a GEMM runs probed and adds to its kind's record (kind 1 is proj at cin
+// 184, fc2 at 368; kinds 3 and 4 the 180->180 convs').
 extern "C" int swinir_gemm_f32(int kind, const float* in, float* out,
                                const float* w, int wfloats,
                                const float* skip, const float* ln,
                                float* stats, int H, int W, int cin, int grid,
-                               float scale, void* stream) {
+                               float scale, void* stream, void* probes) {
   if (grid <= 0 || (reinterpret_cast<uintptr_t>(w) & 15) != 0 ||
       4LL * H * W >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
-  const int err = prepare();
+  const int err = prepare(probes != nullptr);
   if (err != 0) return err;
+  Probe* pr = static_cast<Probe*>(probes);
   cudaStream_t s = (cudaStream_t)stream;
   float2* st = reinterpret_cast<float2*>(stats);
   switch (kind) {
     case 0:
       return (int)linear<SW_LN, SW_STORE>(
           gemm_args(in, out, w, wfloats, nullptr, ln, H, W, CP, KCH, 3, QKVP,
-                    st), grid, s);
+                    st), grid, s, probe_of(pr, PROBE_QKV));
     case 1:
       if (cin != CP && cin != HIDP) return (int)cudaErrorInvalidValue;
       return (int)linear<SW_PLAIN, SW_RESID>(
           gemm_args(in, out, w, wfloats, skip, nullptr, H, W, cin,
-                    (cin + KC - 1) / KC, 1, CP, nullptr, st), grid, s);
+                    (cin + KC - 1) / KC, 1, CP, nullptr, st), grid, s,
+          probe_of(pr, cin == CP ? PROBE_PROJ : PROBE_FC2));
     case 2:
       return (int)linear<SW_LN, SW_GELU>(
           gemm_args(in, out, w, wfloats, nullptr, ln, H, W, CP, KCH, 2, HIDP,
-                    st), grid, s);
+                    st), grid, s, probe_of(pr, PROBE_FC1));
     case 3:
       return (int)conv3x3<CP, SW_PLAIN, SW_RESID>(
           gemm_args(in, out, w, wfloats, skip, nullptr, H, W, CP, KCH, 1, CP,
-                    nullptr, st), grid, s);
+                    nullptr, st), grid, s, probe_of(pr, PROBE_CONV));
     case 4:
       return (int)conv3x3<CP, SW_LN, SW_RESID>(
           gemm_args(in, out, w, wfloats, skip, ln, H, W, CP, KCH, 1, CP, st),
-          grid, s);
+          grid, s, probe_of(pr, PROBE_CONV));
     case 5:
       return (int)conv3x3<FEAT, SW_PLAIN, SW_LEAKY>(
           gemm_args(in, out, w, wfloats, nullptr, nullptr, H, W, CP, KCH, 1,
-                    FEAT), grid, s);
+                    FEAT), grid, s, probe_of(pr, PROBE_BEFORE_UP));
     case 6:
       if (H % WIN != 0 || W % WIN != 0) return (int)cudaErrorInvalidValue;
       return (int)attention(in, w, out, H, W, cin, scale, s);

@@ -64,6 +64,10 @@
 // grouped by 8 channels so that a stage's reads are contiguous rows, and
 // stores x once, from the unit that owns the pixel.  ptxas fits these
 // instances in the block's 168 registers a thread without spilling.
+//
+// Each instance has a probed twin (PROBE = true, probe.cuh) that counts the
+// consumers' waits on `full`, their epilogues and the producer's fills; the
+// launchers run it only when given the counter records.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -252,13 +256,15 @@ __device__ __forceinline__ float4 ca_apply(float4 x, float4 t, float4 s) {
                      __fadd_rn(x.w, __fmul_rn(t.w, s.w)));
 }
 
-template <int LOAD>
+template <int LOAD, bool PROBE>
 __device__ __forceinline__ void producer(const float* __restrict__ in,
                                          const float* __restrict__ wl,
                                          const Units& un, float* smem,
                                          uint64_t* full, uint64_t* empty,
-                                         const LoadArgs& la) {
+                                         const LoadArgs& la, Probe* probe) {
   const int tid = threadIdx.x & 127;
+  ProducerTally tl;
+  if constexpr (PROBE) tl.start();
   constexpr int ITEMS = IN_ROWS * COLS * 2;      // float4s of a stage
   constexpr int PER = (ITEMS + 127) / 128;
   constexpr bool APPLY = LOAD != LOAD_PLAIN;
@@ -276,7 +282,10 @@ __device__ __forceinline__ void producer(const float* __restrict__ in,
     const int y0 = un.y0(u), x0 = un.x0(u);
     for (int q = 0; q < CHUNKS; ++q, ++n) {
       const int s = n % STAGES;
-      bar_wait(&empty[s], pass_parity<STAGES>(n) ^ 1u);
+      if constexpr (PROBE)
+        tl.wait_empty(&empty[s], pass_parity<STAGES>(n) ^ 1u);
+      else
+        bar_wait(&empty[s], pass_parity<STAGES>(n) ^ 1u);
       float* st = smem + s * STAGE;
       if (tid == 0 && (!APPLY || n > 0)) {
         bar_arrive_tx(&full[s], W_STAGE * 4);
@@ -345,17 +354,20 @@ __device__ __forceinline__ void producer(const float* __restrict__ in,
       }
     }
   }
+  if constexpr (PROBE) tl.flush(probe, n, tid);
 }
 
 // --- consumers: one output row of each unit ----------------------------------
 
-template <int EPI>
+template <int EPI, bool PROBE>
 __device__ __forceinline__ void consumer(float* __restrict__ out,
                                          const float* __restrict__ bias,
                                          const Units& un, float* smem,
                                          uint64_t* full, uint64_t* empty,
-                                         int c, const EpiArgs& ea) {
+                                         int c, const EpiArgs& ea,
+                                         Probe* probe) {
   const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
+  ConsumerTally tl;
   const int g = lane >> 2, t = lane & 3;
   const int co0 = 16 * warp + g;                 // rows co0, co0 + 8 of D
   const float b0 = __ldg(bias + co0), b1 = __ldg(bias + co0 + 8);
@@ -372,7 +384,10 @@ __device__ __forceinline__ void consumer(float* __restrict__ out,
     int prev = 0;
     for (int q = 0; q < CHUNKS; ++q, ++n) {
       const int s = n % STAGES;
-      bar_wait(&full[s], pass_parity<STAGES>(n));
+      if constexpr (PROBE)
+        tl.wait_full(&full[s], pass_parity<STAGES>(n), q);
+      else
+        bar_wait(&full[s], pass_parity<STAGES>(n));
       const float* st = smem + s * STAGE;
       wg_fence();
 #pragma unroll
@@ -395,6 +410,7 @@ __device__ __forceinline__ void consumer(float* __restrict__ out,
       prev = s;
     }
     wg_wait<0>();
+    if constexpr (PROBE) tl.epilogue_start();
     fence_acc(acc);
     bar_arrive(&empty[prev]);
 
@@ -455,7 +471,9 @@ __device__ __forceinline__ void consumer(float* __restrict__ out,
         }
       }
     }
+    if constexpr (PROBE) tl.unit_end();
   }
+  if constexpr (PROBE) tl.flush(probe, c, tid);
   if constexpr (EPI == EPI_POOL) {
     if (t == 0) {
       float* p = ea.pool + ((size_t)blockIdx.x * NCONS + c) * C;
@@ -465,12 +483,12 @@ __device__ __forceinline__ void consumer(float* __restrict__ out,
   }
 }
 
-template <int EPI, int LOAD>
+template <int EPI, int LOAD, bool PROBE>
 __device__ __forceinline__ void conv3x3(const float* __restrict__ in,
                                         float* __restrict__ out,
                                         const float* __restrict__ wl, int H,
                                         int W, const EpiArgs& ea,
-                                        const LoadArgs& la) {
+                                        const LoadArgs& la, Probe* probe) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + BAR_OFF);
@@ -486,23 +504,27 @@ __device__ __forceinline__ void conv3x3(const float* __restrict__ in,
   const Units un(H, W);
   const int wg = threadIdx.x / 128;
   if (wg == NCONS)
-    producer<LOAD>(in, wl, un, smem, full, empty, la);
+    producer<LOAD, PROBE>(in, wl, un, smem, full, empty, la, probe);
   else
-    consumer<EPI>(out, wl + W_LAYER, un, smem, full, empty, wg, ea);
+    consumer<EPI, PROBE>(out, wl + W_LAYER, un, smem, full, empty, wg, ea,
+                         probe);
 }
 
+template <bool PROBE>
 __global__ void __launch_bounds__(NTHREADS, 1)
 vdsr_conv3x3_kernel(const float* __restrict__ in, float* __restrict__ out,
-                    const float* __restrict__ wl, int H, int W) {
-  conv3x3<EPI_RELU, LOAD_PLAIN>(in, out, wl, H, W, EpiArgs{}, LoadArgs{});
+                    const float* __restrict__ wl, int H, int W,
+                    Probe* probe) {
+  conv3x3<EPI_RELU, LOAD_PLAIN, PROBE>(in, out, wl, H, W, EpiArgs{},
+                                       LoadArgs{}, probe);
 }
 
-template <int EPI, int LOAD>
+template <int EPI, int LOAD, bool PROBE>
 __global__ void __launch_bounds__(NTHREADS, 1)
 rcan_conv3x3_kernel(const float* __restrict__ in, float* __restrict__ out,
                     const float* __restrict__ wl, int H, int W, EpiArgs ea,
-                    LoadArgs la) {
-  conv3x3<EPI, LOAD>(in, out, wl, H, W, ea, la);
+                    LoadArgs la, Probe* probe) {
+  conv3x3<EPI, LOAD, PROBE>(in, out, wl, H, W, ea, la, probe);
 }
 
 template <int LOAD>
@@ -510,19 +532,26 @@ constexpr size_t smem_bytes() {
   return LOAD == LOAD_PLAIN ? SMEM_BYTES : SMEM_APPLY_BYTES;
 }
 
-template <int EPI, int LOAD>
+template <int EPI, int LOAD, bool PROBE>
 cudaError_t opt_in() {
-  return cudaFuncSetAttribute(rcan_conv3x3_kernel<EPI, LOAD>,
+  return cudaFuncSetAttribute(rcan_conv3x3_kernel<EPI, LOAD, PROBE>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)smem_bytes<LOAD>());
 }
 
+// The instance's probed twin where `probe` (its kind's record) is given.
 template <int EPI, int LOAD>
 cudaError_t launch(const float* in, float* out, const float* wl, int H,
                    int W, const EpiArgs& ea, const LoadArgs& la, int grid,
-                   cudaStream_t s) {
-  rcan_conv3x3_kernel<EPI, LOAD><<<grid, NTHREADS, smem_bytes<LOAD>(), s>>>(
-      in, out, wl, H, W, ea, la);
+                   cudaStream_t s, Probe* probe) {
+  if (probe != nullptr)
+    rcan_conv3x3_kernel<EPI, LOAD, true>
+        <<<grid, NTHREADS, smem_bytes<LOAD>(), s>>>(in, out, wl, H, W, ea, la,
+                                                    probe);
+  else
+    rcan_conv3x3_kernel<EPI, LOAD, false>
+        <<<grid, NTHREADS, smem_bytes<LOAD>(), s>>>(in, out, wl, H, W, ea, la,
+                                                    nullptr);
   return cudaGetLastError();
 }
 
@@ -637,19 +666,22 @@ vdsr_last_kernel(const float* __restrict__ act, const uint8_t* __restrict__ y,
 // [9][64] + its bias.  act0, act1: two H x W x 64 float32 buffers, which the
 // frames use in turn.  (grid, smem_bytes): ops/cuda_vdsr.py::vdsr_plan.
 // Enqueues, frame by frame, conv1, the DEPTH - 2 middle layers and conv20
-// on `stream`.
+// on `stream`.  probes: the counter records (probe.cuh), or null; given,
+// the middle layers run probed.
 extern "C" int vdsr_y_u8(const uint8_t* y, long long frame_stride,
                          const float* w_first, const float* w_mid,
                          const float* w_last, float* act0, float* act1,
                          uint8_t* out, int B, int H, int W, int grid,
-                         int smem_bytes, void* stream) {
+                         int smem_bytes, void* stream, void* probes) {
   if (smem_bytes != (int)SMEM_BYTES || grid <= 0 ||
       (reinterpret_cast<uintptr_t>(w_mid) & 15) != 0 ||
       (long long)H * W >= (1LL << 31))
     return (int)cudaErrorInvalidValue;   // a plan for another kernel
+  Probe* probe = probe_of(static_cast<Probe*>(probes), PROBE_VDSR);
   cudaError_t err = cudaFuncSetAttribute(
-      vdsr_conv3x3_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)SMEM_BYTES);
+      probe != nullptr ? vdsr_conv3x3_kernel<true>
+                       : vdsr_conv3x3_kernel<false>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = (cudaStream_t)stream;
   const long long px = (long long)H * W;
@@ -661,8 +693,13 @@ extern "C" int vdsr_y_u8(const uint8_t* y, long long frame_stride,
     float* src = act0;
     float* dst = act1;
     for (int l = 0; l < DEPTH - 2; ++l) {
-      vdsr_conv3x3_kernel<<<grid, NTHREADS, SMEM_BYTES, s>>>(
-          src, dst, w_mid + (size_t)l * LAYER_FLOATS, H, W);
+      const float* wl = w_mid + (size_t)l * LAYER_FLOATS;
+      if (probe != nullptr)
+        vdsr_conv3x3_kernel<true><<<grid, NTHREADS, SMEM_BYTES, s>>>(
+            src, dst, wl, H, W, probe);
+      else
+        vdsr_conv3x3_kernel<false><<<grid, NTHREADS, SMEM_BYTES, s>>>(
+            src, dst, wl, H, W, nullptr);
       float* tmp = src;
       src = dst;
       dst = tmp;
@@ -679,42 +716,59 @@ namespace srcnn_hopper {
 
 // RCAN's instances: every epilogue on the plain loader, an RCAB's first
 // conv on LOAD_APPLY and a group's last conv on LOAD_APPLY_LAST.
-int rcan_conv3x3_prepare() {
+template <bool PROBE>
+int opt_in_all() {
   const cudaError_t errs[] = {
-      opt_in<EPI_RELU, LOAD_PLAIN>(),    opt_in<EPI_POOL, LOAD_PLAIN>(),
-      opt_in<EPI_SKIP, LOAD_PLAIN>(),    opt_in<EPI_SHUFFLE, LOAD_PLAIN>(),
-      opt_in<EPI_RELU, LOAD_APPLY>(),    opt_in<EPI_SKIP, LOAD_APPLY_LAST>()};
+      opt_in<EPI_RELU, LOAD_PLAIN, PROBE>(),
+      opt_in<EPI_POOL, LOAD_PLAIN, PROBE>(),
+      opt_in<EPI_SKIP, LOAD_PLAIN, PROBE>(),
+      opt_in<EPI_SHUFFLE, LOAD_PLAIN, PROBE>(),
+      opt_in<EPI_RELU, LOAD_APPLY, PROBE>(),
+      opt_in<EPI_SKIP, LOAD_APPLY_LAST, PROBE>()};
   for (const cudaError_t err : errs)
     if (err != cudaSuccess) return (int)err;
   return 0;
 }
 
+int rcan_conv3x3_prepare(bool probed) {
+  const int err = opt_in_all<false>();
+  return err != 0 || !probed ? err : opt_in_all<true>();
+}
+
 cudaError_t rcan_conv3x3(Epilogue epi, Loader load, const float* in,
                          float* out, const float* wl, int H, int W,
-                         EpiArgs ea, LoadArgs la, int grid, cudaStream_t s) {
+                         EpiArgs ea, LoadArgs la, int grid, cudaStream_t s,
+                         Probe* probes) {
   if (load != LOAD_PLAIN && (la.parts <= 0 || la.parts > CA_PARTS_MAX))
     return cudaErrorInvalidValue;
   if (load == LOAD_PLAIN) {
     switch (epi) {
       case EPI_RELU:
-        return launch<EPI_RELU, LOAD_PLAIN>(in, out, wl, H, W, ea, la, grid,
-                                            s);
+        return launch<EPI_RELU, LOAD_PLAIN>(
+            in, out, wl, H, W, ea, la, grid, s,
+            probe_of(probes, PROBE_RCAN_RELU));
       case EPI_POOL:
-        return launch<EPI_POOL, LOAD_PLAIN>(in, out, wl, H, W, ea, la, grid,
-                                            s);
+        return launch<EPI_POOL, LOAD_PLAIN>(
+            in, out, wl, H, W, ea, la, grid, s,
+            probe_of(probes, PROBE_RCAN_POOL));
       case EPI_SKIP:
-        return launch<EPI_SKIP, LOAD_PLAIN>(in, out, wl, H, W, ea, la, grid,
-                                            s);
+        return launch<EPI_SKIP, LOAD_PLAIN>(
+            in, out, wl, H, W, ea, la, grid, s,
+            probe_of(probes, PROBE_RCAN_SKIP));
       case EPI_SHUFFLE:
-        return launch<EPI_SHUFFLE, LOAD_PLAIN>(in, out, wl, H, W, ea, la,
-                                               grid, s);
+        return launch<EPI_SHUFFLE, LOAD_PLAIN>(
+            in, out, wl, H, W, ea, la, grid, s,
+            probe_of(probes, PROBE_RCAN_SHUFFLE));
     }
   }
   if (load == LOAD_APPLY && epi == EPI_RELU)
-    return launch<EPI_RELU, LOAD_APPLY>(in, out, wl, H, W, ea, la, grid, s);
+    return launch<EPI_RELU, LOAD_APPLY>(
+        in, out, wl, H, W, ea, la, grid, s,
+        probe_of(probes, PROBE_RCAN_RELU_APPLY));
   if (load == LOAD_APPLY_LAST && epi == EPI_SKIP)
-    return launch<EPI_SKIP, LOAD_APPLY_LAST>(in, out, wl, H, W, ea, la, grid,
-                                             s);
+    return launch<EPI_SKIP, LOAD_APPLY_LAST>(
+        in, out, wl, H, W, ea, la, grid, s,
+        probe_of(probes, PROBE_RCAN_SKIP_APPLY_LAST));
   return cudaErrorInvalidValue;   // an instance RCAN does not launch
 }
 

@@ -30,6 +30,13 @@ bodies' instances (``vdsr_conv3x3_kernel``, RCAN's ``rcan_conv3x3_kernel``
 of each epilogue and loader, SwinIR's ``swin_stl_*`` and
 ``swinir_conv3x3_kernel``) compiled to the same SASS in both
 (``cuobjdump``, where it runs).
+
+    python -m srcnn_cpp_tpu_torch.kernel_ab --probes
+
+times instead, in this tree alone, what the stall counters cost when they
+are on (:func:`probe_cost`): each GEMM kind of the two bodies at 1080p,
+unprobed against probed, in turns.
+
 Prints one line per round
 and a JSON summary (medians over the rounds, the profiles, the card's name
 and power limit), also written to ``--out``.  Needs a CUDA card.
@@ -224,20 +231,122 @@ def conv_sass(code: dict) -> dict[str, list[str]]:
     ``e`` and loader ``l`` (mangled ``...ILi<e>ELi<l>EE``, or ``...ILi<e>EE``
     before the loader became a template parameter, read as ``l`` 0); and
     SwinIR's ``swin_stl_linear_kernel<l, e>``, ``swinir_conv3x3_kernel<n,
-    l, e>`` and ``swin_stl_attention_kernel``."""
+    l, e>`` and ``swin_stl_attention_kernel``.  Where an instance has the
+    stall counters' last template parameter ``PROBE`` (mangled ``Lb0E``,
+    ``Lb1E``), the unprobed one keeps the name of a tree's instance without
+    it, so that the two are compared, and the probed one is named with
+    ``" probed"`` after it."""
     out = {}
     for name, body in code.items():
-        if "vdsr_conv3x3_kernel" in name:
-            out["vdsr_conv3x3_kernel"] = body
+        m = re.search(r"vdsr_conv3x3_kernel(?:ILb([01])EE)?", name)
+        if m:
+            out["vdsr_conv3x3_kernel" + PROBED[m.group(1)]] = body
         if "swin_stl_attention_kernel" in name:
             out["swin_stl_attention_kernel"] = body
         m = re.search(r"(rcan_conv3x3|swin_stl_linear|swinir_conv3x3)_kernel"
-                      r"ILi(\d+)E(?:Li(\d+)E)?(?:Li(\d+)E)?E", name)
+                      r"ILi(\d+)E(?:Li(\d+)E)?(?:Li(\d+)E)?(?:Lb([01])E)?E",
+                      name)
         if m:
             last = f", {m.group(4)}" if m.group(4) else ""
             out[f"{m.group(1)}_kernel<{m.group(2)}, "
-                f"{m.group(3) or 0}{last}>"] = body
+                f"{m.group(3) or 0}{last}>{PROBED[m.group(5)]}"] = body
     return out
+
+
+#: a conv-body instance's name suffix by its mangled PROBE (None: no such
+#: parameter)
+PROBED = {None: "", "0": "", "1": " probed"}
+
+
+def _queued_ms(fn, n: int) -> float:
+    """CUDA-event ms a call over ``n`` back-to-back calls of ``fn``,
+    enqueued behind a sleep on the card, so that the host's time to launch
+    them (longer for a probed call) stays out of the span."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)
+    t0.record()
+    for _ in range(n):
+        fn()
+    t1.record()
+    t1.synchronize()
+    return t0.elapsed_time(t1) / n
+
+
+def probe_cost_calls(h: int = 1080, w: int = 1920) -> dict:
+    """``{kind: launch}``: one launch of each GEMM kind of the two bodies
+    (``ops.cuda_swinir.PROBE_KINDS``, the 180-wide convs with and without
+    the LayerNorm loader) on a seeded ``h x w`` map; VDSR's kind is its
+    chain on one ``h x w`` Y plane, whose 64->64 layers take 96 % of it."""
+    from .ops import cuda_rcan, cuda_swinir
+    from .ops.cuda_vdsr import vdsr_y_fused
+    from .weights import load_vdsr_weights
+
+    torch.manual_seed(0)
+
+    def rand(*shape, std=0.05):
+        return std * torch.randn(shape, device="cuda")
+
+    def tokens(real, width):
+        x = torch.zeros((h, w, width), device="cuda")
+        x[..., :real] = torch.randn((h, w, real), device="cuda")
+        return x
+
+    x, hid = tokens(180, 184), tokens(360, 368)
+    ln = (1 + rand(180), rand(180))
+    calls = {
+        "qkv": ("qkv", x, (540, 180), {"ln": ln}),
+        "proj": ("resid", x, (180, 180), {"skip": x}),
+        "fc1": ("fc1", x, (360, 180), {"ln": ln}),
+        "fc2": ("resid", hid, (180, 360), {"skip": x}),
+        "conv": ("conv", x, (180, 180, 3, 3), {"skip": x}),
+        "conv_ln": ("conv_ln", x, (180, 180, 3, 3), {"skip": x, "ln": ln}),
+        "before_up": ("before_up", x, (64, 180, 3, 3), {})}
+    out = {}
+    for name, (kind, inp, shape, kw) in calls.items():
+        out[f"swinir_gemm.{name}"] = cuda_swinir.gemm_call(
+            kind, inp, rand(*shape).cpu(), rand(shape[0]).cpu(), **kw)[0]
+    m = torch.relu(torch.randn((h, w, 64), device="cuda"))
+    grid = cuda_rcan.rcan_plan(h, w, torch.cuda.get_device_properties(0)
+                               .multi_processor_count)["grid"]
+    ca = {"t": torch.randn((h, w, 64), device="cuda"),
+          "ca_pool": torch.rand((2 * grid, 64), device="cuda") * h * w
+          / (2 * grid), "ca": rand(cuda_rcan.CA_FLOATS, std=0.5)}
+    for name, epi, kw in (("relu", "relu", {}), ("pool", "pool", {}),
+                          ("skip", "skip", {"skip": m}),
+                          ("shuffle", "shuffle", {}),
+                          ("relu_apply", "relu", ca),
+                          ("skip_apply_last", "skip", {"skip": m, **ca})):
+        out[f"conv3x3.{name}"] = cuda_rcan.conv3x3_call(
+            m, rand(64, 64, 3, 3).cpu(), rand(64).cpu(), epi, **kw)[0]
+    weights = load_vdsr_weights(VDSR_NPZ, device="cuda")
+    y = torch.randint(0, 256, (1, h, w), dtype=torch.uint8, device="cuda")
+    out["conv3x3.vdsr"] = lambda: vdsr_y_fused(y, weights)
+    return out
+
+
+def probe_cost(rounds: int = 7, n: int = 10) -> dict:
+    """What the stall counters cost when on: each launch of
+    :func:`probe_cost_calls` timed unprobed and probed
+    (``utils.profiling.counted``), in turns (off, on, on, off) for
+    ``rounds`` rounds, each a mean over ``n`` queued launches
+    (:func:`_queued_ms`).  ``{kind: {"off": ms, "on": ms, "cost_pct":
+    ...}}``, medians over the rounds."""
+    from .utils.profiling import counted
+
+    found = {}
+    for name, fn in probe_cost_calls().items():
+        off, on = [], []
+        for _ in range(rounds):
+            off.append(_queued_ms(fn, n))
+            on += [counted(lambda: _queued_ms(fn, n))[0] for _ in range(2)]
+            off.append(_queued_ms(fn, n))
+        a, b = statistics.median(off), statistics.median(on)
+        found[name] = {"off": a, "on": b, "cost_pct": 100.0 * (b - a) / a,
+                       "off_all": off, "on_all": on}
+    return found
 
 
 def _card() -> str:
@@ -249,18 +358,34 @@ def _card() -> str:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--parent", required=True, type=Path,
+    ap.add_argument("--parent", type=Path,
                     help="root of the checkout to compare against")
+    ap.add_argument("--probes", action="store_true",
+                    help="time the stall counters' cost when on, each GEMM "
+                         "kind at 1080p probed against unprobed, and "
+                         "nothing else")
     ap.add_argument("--rounds", type=int, default=3)
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--out", type=Path, default=Path("chiprun_out/ab.json"))
     args = ap.parse_args(argv)
+    if args.parent is None and not args.probes:
+        ap.error("give --parent or --probes")
     if not torch.cuda.is_available():
         print("kernel_ab: needs a CUDA card", file=sys.stderr)
         return 1
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     card = _card()
+    if args.probes:
+        found = probe_cost()
+        for name, r in found.items():
+            print(f"probe cost {name}: off {r['off']:.4f} ms, on "
+                  f"{r['on']:.4f} ms a launch, {r['cost_pct']:+.2f} % "
+                  f"({card})", flush=True)
+        args.out.parent.mkdir(parents=True, exist_ok=True)
+        args.out.write_text(json.dumps({"card": card, "probe_cost": found},
+                                       indent=1))
+        return 0
 
     load_checkout(args.parent)
     sides, code = {}, {}

@@ -27,12 +27,13 @@ epilogue and one loader, for the tests on the card.
 
 from __future__ import annotations
 
+import collections
 import functools
 
 import torch
 
 from .. import runtime
-from ..utils.profiling import span
+from ..utils.profiling import counter_records, span
 from ..weights.loader import derived
 from ..weights.rcan import CHANNELS, COLORS, SCALE, RCANWeights, rcab_prefix
 from .cuda_srcnn import _on_device
@@ -40,7 +41,8 @@ from .cuda_vdsr import conv_grid, pack_layer, vdsr_smem_bytes
 from .rcan import rcan_x2
 
 __all__ = ["rcan_fused", "rcan_plain", "pack_rcan", "mid_order",
-           "rcan_plan", "launch_schedule", "conv3x3_variant"]
+           "rcan_plan", "launch_schedule", "probed_kinds", "conv3x3_variant",
+           "conv3x3_call"]
 
 #: floats of one RCAB's channel attention: W1 [4][64], b1, W2 [64][4], b2
 CA_FLOATS = 4 * CHANNELS + 4 + CHANNELS * 4 + CHANNELS
@@ -97,6 +99,16 @@ def launch_schedule(groups: int, blocks: int) -> list[tuple]:
     out.append(("conv", "skip", "plain", (gin, "h"), ("x",)))
     out += [("conv", "shuffle", "plain", ("x",), ("hr",))] * len(SHUFFLE)
     return out + [("tail", None, None, ("hr",), ("out",))]
+
+
+def probed_kinds(groups: int, blocks: int) -> dict:
+    """The launches a frame of each 64->64 conv kind
+    (``cuda_swinir.PROBE_KINDS``: the epilogue, and the loader after it
+    unless plain) in :func:`launch_schedule`."""
+    return dict(collections.Counter(
+        ("conv3x3", epi if load == "plain" else f"{epi}_{load}")
+        for kernel, epi, load, *_ in launch_schedule(groups, blocks)
+        if kernel == "conv"))
 
 
 def _pack(weights: RCANWeights) -> tuple:
@@ -209,7 +221,8 @@ def rcan_fused(bgr_p: torch.Tensor, weights: RCANWeights,
                     middle.data_ptr(), ca.data_ptr(), tail.data_ptr(),
                     ws.data_ptr(), out.data_ptr(), b, h, w, weights.groups,
                     weights.blocks, plan["grid"], plan["smem_bytes"],
-                    runtime.current_stream()), "rcan_x2_u8")
+                    runtime.current_stream(), counter_records(x.device)),
+                "rcan_x2_u8")
             rcan_fused.launches += 1
             rcan_fused.ca_folded += b * weights.groups * weights.blocks
         return out
@@ -241,6 +254,22 @@ def conv3x3_variant(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     (:data:`SHUFFLE`) of a zeroed map; ``pool`` the partial sums ``[grid,
     2, 64]`` for ``"pool"``; ``x`` the input the loader formed and stored
     (``"apply"``) and ``s`` the attention (64), else None."""
+    launch, result = conv3x3_call(x, w, b, epilogue, skip, q, t, ca_pool, ca,
+                                  grouped)
+    launch()
+    return result()
+
+
+def conv3x3_call(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                 epilogue: str, skip: torch.Tensor | None = None, q: int = 0,
+                 t: torch.Tensor | None = None,
+                 ca_pool: torch.Tensor | None = None,
+                 ca: torch.Tensor | None = None,
+                 grouped: bool = False) -> tuple:
+    """:func:`conv3x3_variant`'s launch, with its buffers made once:
+    ``(launch, result)``, where each ``launch()`` enqueues the layer again
+    (probed while a profiler records) and ``result()`` returns the dict
+    that :func:`conv3x3_variant` returns, of the last launch."""
     h, wd, _ = x.shape
     plan = rcan_plan(h, wd, runtime.num_sms())
     x = to_grouped(x) if grouped else x.contiguous()
@@ -266,19 +295,25 @@ def conv3x3_variant(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
         return v.data_ptr() if v is not None else None
 
     dy, dx = SHUFFLE[q]
-    with torch.cuda.device(x.device):
-        runtime.check(runtime.library().rcan_conv3x3_f32(
-            EPILOGUES[epilogue], LOADERS[load], x.data_ptr(), out.data_ptr(),
-            packed.data_ptr(), ptr(skip), ptr(pool), ptr(t), ptr(ca_pool),
-            ptr(ca), ptr(xs), ptr(s),
-            ca_pool.shape[0] if ca_pool is not None else 0, int(grouped), dy,
-            dx, h, wd, plan["grid"], plan["smem_bytes"],
-            runtime.current_stream()), "rcan_conv3x3_f32")
-    if xs is not None:
-        xs = from_grouped(xs, h, wd)
-    if pool is not None:
-        out = from_grouped(out.reshape(-1), h, wd)
-    return {"out": out, "pool": pool, "x": xs, "s": s}
+
+    def launch():
+        with torch.cuda.device(x.device):
+            runtime.check(runtime.library().rcan_conv3x3_f32(
+                EPILOGUES[epilogue], LOADERS[load], x.data_ptr(),
+                out.data_ptr(), packed.data_ptr(), ptr(skip), ptr(pool),
+                ptr(t), ptr(ca_pool), ptr(ca), ptr(xs), ptr(s),
+                ca_pool.shape[0] if ca_pool is not None else 0, int(grouped),
+                dy, dx, h, wd, plan["grid"], plan["smem_bytes"],
+                runtime.current_stream(), counter_records(x.device)),
+                "rcan_conv3x3_f32")
+
+    def result():
+        return {"out": out if pool is None
+                else from_grouped(out.reshape(-1), h, wd), "pool": pool,
+                "x": from_grouped(xs, h, wd) if xs is not None else None,
+                "s": s}
+
+    return launch, result
 
 
 def to_grouped(x: torch.Tensor) -> torch.Tensor:

@@ -28,23 +28,26 @@ attention on the card, for the tests there.
 
 from __future__ import annotations
 
+import collections
 import functools
 
 import torch
 
 from .. import runtime
-from ..utils.profiling import span
+from ..utils.profiling import counter_records, span
 from ..weights.loader import derived
 from ..weights.swinir import (DIM, FEAT, HEADS, HIDDEN, SCALE, TABLE, WINDOW,
                               SwinIRWeights, stl_prefix)
 from .cuda_rcan import SHUFFLE
 from .cuda_srcnn import _on_device, tf32_split
-from .cuda_vdsr import conv_grid, pack_layer, vdsr_smem_bytes
+from .cuda_vdsr import CHUNKS, conv_grid, pack_layer, vdsr_smem_bytes
 from .swinir import swinir_x2
 
 __all__ = ["swinir_fused", "swinir_plain", "pack_swinir", "pack_gemm",
            "stl_layout", "swinir_plan", "launch_schedule", "gemm_launches",
-           "gemm_variant", "ln_stats", "pad_index"]
+           "gemm_variant", "gemm_call", "ln_stats", "pad_index",
+           "PROBE_KINDS", "PROBE_FIELDS", "probe_units", "probed_kinds",
+           "probe_counts", "probe_tally"]
 
 #: the token map's floats a pixel: 180 channels and 4 zero pads
 CP = 184
@@ -258,6 +261,101 @@ def launch_schedule(groups: int, depth: int) -> list[tuple]:
 GEMM_KERNELS = ("swin_stl_linear_kernel", "swinir_conv3x3_kernel")
 
 
+#: the kinds of the two warp-specialised GEMM bodies whose stall counters
+#: their probed instances keep (``csrc/probe.cuh``'s ``ProbeKind``, in its
+#: order), as ``(body, kind)``: this module's GEMM body, ``swinir_gemm``
+#: (the 180->180 convs one kind, conv_before_upsample another); and the
+#: 64->64 body of ``csrc/vdsr_conv.cu``, ``conv3x3``, one kind an instance
+#: (VDSR's, then RCAN's ``<EPI, LOAD>``, which also runs SwinIR's
+#: upsampler)
+PROBE_KINDS = (("swinir_gemm", "qkv"), ("swinir_gemm", "proj"),
+               ("swinir_gemm", "fc1"), ("swinir_gemm", "fc2"),
+               ("swinir_gemm", "conv"), ("swinir_gemm", "before_up"),
+               ("conv3x3", "vdsr"), ("conv3x3", "relu"), ("conv3x3", "pool"),
+               ("conv3x3", "skip"), ("conv3x3", "shuffle"),
+               ("conv3x3", "relu_apply"), ("conv3x3", "skip_apply_last"))
+#: a kind's counters (``probe.cuh``'s ``Probe``): the launches; the
+#: consumers' units, their cycles from the first wait on ``full`` to the
+#: end of the epilogue, the cycles waiting on ``full`` and the epilogue's
+#: (cycles summed over a block's two consumer warpgroups); the producer's
+#: stages, its cycles not waiting on ``empty`` (its fills) and waiting
+PROBE_FIELDS = ("launches", "units", "unit_cycles", "full_wait_cycles",
+                "epilogue_cycles", "stages", "fill_cycles",
+                "empty_wait_cycles")
+
+
+#: a SwinIR GEMM kind's output tiles and stages a unit (taps x stages of
+#: 16 input channels)
+_GEMM_SHAPE = {"qkv": (3, K_TOKENS // STAGE_CHANNELS),
+               "proj": (1, K_TOKENS // STAGE_CHANNELS),
+               "fc1": (2, K_TOKENS // STAGE_CHANNELS),
+               "fc2": (1, K_HIDDEN // STAGE_CHANNELS),
+               "conv": (1, 9 * K_TOKENS // STAGE_CHANNELS),
+               "before_up": (1, 9 * K_TOKENS // STAGE_CHANNELS)}
+
+
+def probe_units(body: str, kind: str, h: int, w: int) -> tuple[int, int]:
+    """``(units, stages)`` that one launch of a kind of :data:`PROBE_KINDS`
+    counts on an ``h x w`` map: SwinIR's units of 128 pixels by an output
+    tile, of 12 to 108 stages; the 64->64 body's units of 2 rows by 128
+    columns (:func:`.cuda_vdsr.conv_grid`), of 8 stages (``CHUNKS``)."""
+    if body == "swinir_gemm":
+        tiles, stages = _GEMM_SHAPE[kind]
+        units = -(-h * w // UNIT) * tiles
+    else:
+        units, stages = conv_grid(h, w, 1)[0], CHUNKS
+    return units, units * stages
+
+
+def probe_counts(per_frame: dict, frames: int, h: int, w: int) -> dict:
+    """``{(body, kind): (launches, units, stages)}`` that ``frames`` frames
+    of ``h x w`` count, from each kind's launches a frame (``per_frame``:
+    :func:`probed_kinds`, ``cuda_rcan.probed_kinds``)."""
+    out = {}
+    for (body, kind), n in per_frame.items():
+        units, stages = probe_units(body, kind, h, w)
+        out[body, kind] = (frames * n, frames * n * units,
+                           frames * n * stages)
+    return out
+
+
+def probe_tally(found: dict) -> dict:
+    """``{(body, kind): (launches, units, stages)}`` of
+    ``utils.profiling.kernel_counters()``'s result, to compare with
+    :func:`probe_counts`.  ValueError where a kind's waits on ``full`` and
+    epilogues, or its producer's waits on ``empty``, outlast its units'
+    cycles, or it took no cycles: the counters would be at fault."""
+    out = {}
+    for body, kinds in found.items():
+        for kind, c in kinds.items():
+            if c["full_wait_cycles"] + c["epilogue_cycles"] \
+                    > c["unit_cycles"] \
+                    or c["empty_wait_cycles"] > c["unit_cycles"] \
+                    or not (c["fill_cycles"] and c["unit_cycles"]):
+                raise ValueError(f"{body}.{kind}: counters {c}")
+            out[body, kind] = (c["launches"], c["units"], c["stages"])
+    return out
+
+
+#: the GEMM kind of each launch of :func:`launch_schedule` that has one
+_PROBE_KIND = {"norm1 + qkv": ("swinir_gemm", "qkv"),
+               "proj + residual": ("swinir_gemm", "proj"),
+               "norm2 + fc1 + gelu": ("swinir_gemm", "fc1"),
+               "fc2 + residual": ("swinir_gemm", "fc2"),
+               "conv + group skip": ("swinir_gemm", "conv"),
+               "norm + conv_after_body + f0": ("swinir_gemm", "conv"),
+               "conv_before_upsample + leaky": ("swinir_gemm", "before_up"),
+               "upsample": ("conv3x3", "shuffle")}
+
+
+def probed_kinds(groups: int, depth: int) -> dict:
+    """The launches a frame of each GEMM kind (:data:`PROBE_KINDS`) in
+    :func:`launch_schedule`."""
+    return dict(collections.Counter(
+        _PROBE_KIND[what] for _, what in launch_schedule(groups, depth)
+        if what in _PROBE_KIND))
+
+
 def gemm_launches(groups: int, depth: int) -> int:
     """The GEMM body's launches a frame (:func:`launch_schedule`): 4
     linears an STL and the ``groups + 2`` 180-wide convs, 152 at the
@@ -325,8 +423,8 @@ def swinir_fused(bgr_p: torch.Tensor, weights: SwinIRWeights,
                     tail.data_ptr(), ws.data_ptr(), out.data_ptr(), b, hp,
                     wp, weights.groups, weights.depth, plan["grid"],
                     plan["up_grid"], plan["up_smem"],
-                    float((DIM // HEADS) ** -0.5),
-                    runtime.current_stream()), "swinir_x2_u8")
+                    float((DIM // HEADS) ** -0.5), runtime.current_stream(),
+                    counter_records(x.device)), "swinir_x2_u8")
             swinir_fused.launches += 1
             swinir_fused.windows += b * weights.groups * weights.depth \
                 * (hp // WINDOW) * (wp // WINDOW)
@@ -375,6 +473,19 @@ def gemm_variant(kind: str, x: torch.Tensor, w: torch.Tensor | None = None,
     Returns ``{"out", "stats"}``: the output map (``[H, W, 552]``, ``[H,
     W, 368]``, ``[H, W, 184]`` or ``[H, W, 64]``) and, for ``resid`` and
     ``conv``, the statistics ``[H, W, 2]`` it stored."""
+    launch, result = gemm_call(kind, x, w, b, skip, ln, table, shift, alias)
+    launch()
+    return result
+
+
+def gemm_call(kind: str, x: torch.Tensor, w: torch.Tensor | None = None,
+              b: torch.Tensor | None = None, skip: torch.Tensor | None = None,
+              ln: tuple | None = None, table: torch.Tensor | None = None,
+              shift: int = 0, alias: bool = False) -> tuple:
+    """:func:`gemm_variant`'s launch, with its buffers made once:
+    ``(launch, result)``, where each ``launch()`` enqueues the launch again
+    (probed while a profiler records) and ``result`` is the dict that
+    :func:`gemm_variant` returns, which the launches write."""
     h, wd, cin = x.shape
     x = x.contiguous()
     width = {"qkv": QKVP, "fc1": HIDP, "before_up": FEAT}.get(kind, CP)
@@ -403,11 +514,13 @@ def gemm_variant(kind: str, x: torch.Tensor, w: torch.Tensor | None = None,
     def ptr(v):
         return v.data_ptr() if v is not None else None
 
-    with torch.cuda.device(x.device):
-        runtime.check(runtime.library().swinir_gemm_f32(
-            KINDS[kind], x.data_ptr(), out.data_ptr(), packed.data_ptr(),
-            wfloats, ptr(skip), ptr(lnp), ptr(stats), h, wd, cin, grid,
-            float((DIM // HEADS) ** -0.5), runtime.current_stream()),
-            "swinir_gemm_f32")
-    return {"out": out, "stats": stats if kind in ("resid", "conv")
-            else None}
+    def launch():
+        with torch.cuda.device(x.device):
+            runtime.check(runtime.library().swinir_gemm_f32(
+                KINDS[kind], x.data_ptr(), out.data_ptr(), packed.data_ptr(),
+                wfloats, ptr(skip), ptr(lnp), ptr(stats), h, wd, cin, grid,
+                float((DIM // HEADS) ** -0.5), runtime.current_stream(),
+                counter_records(x.device)), "swinir_gemm_f32")
+
+    return launch, {"out": out, "stats": stats if kind in ("resid", "conv")
+                    else None}

@@ -27,7 +27,7 @@ import functools
 import torch
 
 from .. import runtime
-from ..utils.profiling import span
+from ..utils.profiling import counter_records, span
 from ..weights.loader import derived
 from ..weights.vdsr import CHANNELS, VDSRWeights
 from .cuda_srcnn import _k_major, smem_descriptor, tf32_split, y_planes
@@ -199,7 +199,8 @@ def vdsr_y_fused(y_u8: torch.Tensor, weights: VDSRWeights) -> torch.Tensor:
                     middle.data_ptr(), last.data_ptr(), act[0].data_ptr(),
                     act[1].data_ptr(), out.data_ptr(), b, h, w,
                     plan["grid"], plan["smem_bytes"],
-                    runtime.current_stream()), "vdsr_y_u8")
+                    runtime.current_stream(), counter_records(y3.device)),
+                "vdsr_y_u8")
             vdsr_y_fused.launches += 1
         return out.reshape(y_u8.shape)
 

@@ -3,11 +3,11 @@
 The kernels (``csrc/pre_pass.cu``; ``csrc/srcnn_conv.cu``, whose template
 gives the conv, conv+merge and f32-output conv; ``csrc/merge.cu``;
 ``csrc/vdsr_conv.cu``, the VDSR chain and the 64->64 conv it shares;
-``csrc/rcan.cu``, RCAN; ``csrc/swinir.cu``, SwinIR; the shared headers ``csrc/color.cuh``,
-``csrc/wgmma.cuh`` and ``csrc/conv3x3.cuh``) have a plain C interface.  Each
-``.cu`` source is compiled for ``sm_90a`` (Hopper) by its own ``nvcc``, all
-started together,
-and the objects are linked into one shared library, loaded with
+``csrc/rcan.cu``, RCAN; ``csrc/swinir.cu``, SwinIR; the shared headers
+``csrc/color.cuh``, ``csrc/wgmma.cuh``, ``csrc/conv3x3.cuh`` and
+``csrc/probe.cuh``) have a plain C interface.  Each ``.cu`` source is
+compiled for ``sm_90a`` (Hopper) by its own ``nvcc``, all started
+together, and the objects are linked into one shared library, loaded with
 :mod:`ctypes`.  The library is built on first use into ``_build/`` beside
 this file, named by a hash of the sources, headers and flags, so an edited
 source or header rebuilds and an unchanged one loads at once.  A failed
@@ -47,11 +47,14 @@ _SIGNATURES = {
     "pre_pass_u8": (*(_P,) * 8, *(_I,) * 10, _P),
     "pre_pass_resident_blocks": (_I, _P),
     "merge_ycrcb_bgr_u8": (_P, _P, _P, *(_I,) * 6, _LL, _P),
-    "vdsr_y_u8": (_P, _LL, *(_P,) * 6, *(_I,) * 5, _P),
-    "rcan_x2_u8": (_P, _LL, *(_P,) * 6, *(_I,) * 7, _P),
-    "rcan_conv3x3_f32": (_I, _I, *(_P,) * 10, *(_I,) * 8, _P),
-    "swinir_x2_u8": (_P, _LL, *(_P,) * 7, *(_I,) * 8, _F, _P),
-    "swinir_gemm_f32": (_I, *(_P,) * 3, _I, *(_P,) * 3, *(_I,) * 4, _F, _P),
+    # the GEMM bodies' launchers end with the stream and the counter
+    # records (utils.profiling.counter_records: null unless probed)
+    "vdsr_y_u8": (_P, _LL, *(_P,) * 6, *(_I,) * 5, _P, _P),
+    "rcan_x2_u8": (_P, _LL, *(_P,) * 6, *(_I,) * 7, _P, _P),
+    "rcan_conv3x3_f32": (_I, _I, *(_P,) * 10, *(_I,) * 8, _P, _P),
+    "swinir_x2_u8": (_P, _LL, *(_P,) * 7, *(_I,) * 8, _F, _P, _P),
+    "swinir_gemm_f32": (_I, *(_P,) * 3, _I, *(_P,) * 3, *(_I,) * 4, _F, _P,
+                        _P),
 }
 
 

@@ -160,6 +160,27 @@ def test_kernel_signatures_cover_every_entry_point():
         assert f'extern "C" int {name}(' in code, name
 
 
+def test_kernel_signatures_give_each_entry_point_its_arguments():
+    # ctypes passes what _SIGNATURES declares: as many arguments as the C
+    # definition takes, pointers where it takes pointers; the GEMM bodies'
+    # entry points end with the stream and the counter records
+    import ctypes
+
+    from srcnn_cpp_tpu_torch import runtime
+
+    code = "".join(p.read_text() for p in runtime.sources())
+    for name, argtypes in runtime._SIGNATURES.items():
+        params = [" ".join(q.split()) for q in re.search(
+            rf'extern "C" int {name}\((.*?)\)\s*{{', code, re.S)
+            .group(1).split(",")]
+        assert len(params) == len(argtypes), name
+        for q, t in zip(params, argtypes):
+            assert ("*" in q) == (t is ctypes.c_void_p), (name, q)
+        if name in ("vdsr_y_u8", "rcan_x2_u8", "rcan_conv3x3_f32",
+                    "swinir_x2_u8", "swinir_gemm_f32"):
+            assert params[-2:] == ["void* stream", "void* probes"], name
+
+
 def test_kernel_sources_use_unfused_rounding_in_the_vertical_pass():
     # nvcc contracts a*b+c into an FMA by default; the pre-pass's bit
     # identity with OpenCV needs separately rounded products and sums

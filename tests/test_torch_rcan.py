@@ -538,6 +538,28 @@ def test_a_frame_is_417_kernels_at_the_published_depth():
     assert loads.count("apply_last") == 10
 
 
+@pytest.mark.parametrize("shape", [(10, 20, 1080, 1920), (2, 3, 37, 300)])
+def test_every_conv_of_a_frame_is_counted_by_its_kind(shape):
+    # each 64->64 conv of the schedule adds to its instance's counters: a
+    # unit of 2 rows by 128 columns, 8 stages of 8 channels
+    from srcnn_cpp_tpu_torch.ops.cuda_rcan import (launch_schedule,
+                                                   probed_kinds)
+    from srcnn_cpp_tpu_torch.ops.cuda_swinir import PROBE_KINDS, probe_counts
+
+    groups, blocks, h, w = shape
+    kinds = probed_kinds(groups, blocks)
+    assert set(kinds) <= set(PROBE_KINDS)
+    assert sum(kinds.values()) == sum(
+        k == "conv" for k, *_ in launch_schedule(groups, blocks))
+    assert kinds["conv3x3", "relu_apply"] == groups * (blocks - 1)
+    assert kinds["conv3x3", "shuffle"] == 4
+    units = -(-h // 2) * -(-w // 128)
+    got = probe_counts(kinds, 4, h, w)
+    assert got["conv3x3", "pool"] == (4 * groups * blocks,
+                                      4 * groups * blocks * units,
+                                      4 * groups * blocks * units * 8)
+
+
 def test_the_cpu_path_folds_no_attention(small):
     from srcnn_cpp_tpu_torch.ops.cuda_rcan import rcan_fused, rcan_plain
 
@@ -791,3 +813,77 @@ def test_cuda_rcan_fused_at_each_buffer_turn(tmp_path, blocks):
     mx, frac = _lsb(got.cpu(), rcan_plain(x, w).cpu())
     print(f"blocks {blocks}: max {mx} LSB on {frac:.3e} of bytes")
     assert mx <= 1 and frac < 1e-2, (mx, frac)
+
+
+#: each instance of the 64->64 body that RCAN launches: its epilogue, and
+#: whether it takes a skip and forms CA's x + s t in its loader
+PROBED_CONVS = {"relu": ("relu", False, False), "pool": ("pool", False, False),
+                "skip": ("skip", True, False),
+                "shuffle": ("shuffle", False, False),
+                "relu_apply": ("relu", False, True),
+                "skip_apply_last": ("skip", True, True)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw", [(37, 300), (1080, 1920)])
+@pytest.mark.parametrize("kind", sorted(PROBED_CONVS))
+def test_cuda_a_probed_conv3x3_is_bit_equal_and_counted(kind, hw):
+    # traced, the launcher runs the probed instance: the untraced outputs
+    # (the map, the pool sums, CA's s and the stored x), and the units and
+    # stages of the schedule's arithmetic, the same again on a second launch
+    from srcnn_cpp_tpu_torch import runtime
+    from srcnn_cpp_tpu_torch.ops.cuda_rcan import (CA_FLOATS, POOL_PARTS,
+                                                   conv3x3_call,
+                                                   conv3x3_variant,
+                                                   rcan_plan)
+    from srcnn_cpp_tpu_torch.ops.cuda_swinir import probe_tally, probe_units
+    from srcnn_cpp_tpu_torch.utils.profiling import counted
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    h, wd = hw
+    epilogue, skip, apply = PROBED_CONVS[kind]
+    kw = {"skip": _map(h, wd, 31, relu=False) if skip else None}
+    if apply:
+        g = torch.Generator().manual_seed(32)
+        parts = rcan_plan(h, wd, runtime.num_sms())["grid"] * POOL_PARTS
+        kw.update(t=_map(h, wd, 33, relu=False) * 0.5,
+                  ca_pool=(torch.randn((parts, 64), generator=g) * 50).cuda(),
+                  ca=(torch.randn(CA_FLOATS, generator=g) * 0.3).cuda())
+    args = (_map(h, wd, 30), *_layer(34), epilogue)
+    off = conv3x3_variant(*args, **kw)
+    launch, result = conv3x3_call(*args, **kw)
+    found = [probe_tally(counted(launch)[1])]
+    on = result()
+    for k, v in off.items():
+        assert v is None and on[k] is None or torch.equal(on[k], v), k
+    found.append(probe_tally(counted(launch)[1]))
+    want = {("conv3x3", kind): (1, *probe_units("conv3x3", kind, h, wd))}
+    assert found == [want, want]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw", [(37, 300), (1080, 1920)])
+def test_cuda_rcan_fused_probed_is_bit_equal_and_counted(rcan, hw,
+                                                         tmp_path):
+    # under a trace the 64->64 convs run probed: the untraced frame,
+    # counted as the launch schedule says, the same on a second call
+    from srcnn_cpp_tpu_torch.ops.cuda_rcan import probed_kinds, rcan_fused
+    from srcnn_cpp_tpu_torch.ops.cuda_swinir import probe_counts, probe_tally
+    from srcnn_cpp_tpu_torch.utils.profiling import (counted,
+                                                     kernel_counters, trace)
+
+    w = _card(rcan)
+    h, wd = hw
+    x = torch.from_numpy(_frames(1, h, wd, 40)).cuda() \
+        .permute(0, 3, 1, 2).contiguous()
+    off = rcan_fused(x, w, (2 * h, 2 * wd))
+    kernel_counters(reset=True)
+    with trace(str(tmp_path)):
+        traced = rcan_fused(x, w, (2 * h, 2 * wd))
+    found = [probe_tally(kernel_counters(reset=True))]
+    again, more = counted(lambda: rcan_fused(x, w, (2 * h, 2 * wd)))
+    found.append(probe_tally(more))
+    assert torch.equal(traced, off) and torch.equal(again, off)
+    want = probe_counts(probed_kinds(w.groups, w.blocks), 1, h, wd)
+    assert found == [want, want]

@@ -621,14 +621,14 @@ def test_the_plan_mirrors_the_cuda_source():
 
 
 #: the GEMM body's instances, each with its Geo<NT>, as prepare() sets
-#: their shared memory
+#: their shared memory (the probed twin of each too: PROBE)
 GEMM_INSTANCES = {
-    "swin_stl_linear_kernel<SW_LN, SW_STORE>": "CP",
-    "swin_stl_linear_kernel<SW_PLAIN, SW_RESID>": "CP",
-    "swin_stl_linear_kernel<SW_LN, SW_GELU>": "CP",
-    "swinir_conv3x3_kernel<CP, SW_PLAIN, SW_RESID>": "CP",
-    "swinir_conv3x3_kernel<CP, SW_LN, SW_RESID>": "CP",
-    "swinir_conv3x3_kernel<FEAT, SW_PLAIN, SW_LEAKY>": "FEAT"}
+    "swin_stl_linear_kernel<SW_LN, SW_STORE, PROBE>": "CP",
+    "swin_stl_linear_kernel<SW_PLAIN, SW_RESID, PROBE>": "CP",
+    "swin_stl_linear_kernel<SW_LN, SW_GELU, PROBE>": "CP",
+    "swinir_conv3x3_kernel<CP, SW_PLAIN, SW_RESID, PROBE>": "CP",
+    "swinir_conv3x3_kernel<CP, SW_LN, SW_RESID, PROBE>": "CP",
+    "swinir_conv3x3_kernel<FEAT, SW_PLAIN, SW_LEAKY, PROBE>": "FEAT"}
 
 
 def test_the_staged_epilogue_fits_every_gemm_instance():
@@ -636,7 +636,7 @@ def test_the_staged_epilogue_fits_every_gemm_instance():
 
     src = SWINIR_CU.read_text()
     got = dict(re.findall(
-        r"cudaFuncSetAttribute\((\w+<[^>]*>),\s*"
+        r"cudaFuncSetAttribute\(\s*(\w+<[^>]*>),\s*"
         r"cudaFuncAttributeMaxDynamicSharedMemorySize,\s*"
         r"\(int\)Geo<(\w+)>::SMEM\)", src))
     assert got == GEMM_INSTANCES
@@ -769,6 +769,82 @@ def test_kernel_ab_names_every_conv_body_instance():
         "swinir_conv3x3_kernel<184, 3>": ["E"],
         "swinir_conv3x3_kernel<64, 0, 3>": ["H"],
         "swin_stl_attention_kernel": ["F"]}
+    # with the stall counters' PROBE last: the unprobed instance under the
+    # name of the instance without it, the probed one beside it
+    probe = "PNS_5ProbeE"
+    code = {f"{ns}19vdsr_conv3x3_kernelILb0EEvPKfPfS1_ii{probe}": ["A"],
+            f"{ns}19vdsr_conv3x3_kernelILb1EEvPKfPfS1_ii{probe}": ["a"],
+            f"{ns}19rcan_conv3x3_kernelILi0ELi1ELb0EEEvPKfPf{probe}": ["B"],
+            f"{ns}19rcan_conv3x3_kernelILi0ELi1ELb1EEEvPKfPf{probe}": ["b"],
+            f"{sw}22swin_stl_linear_kernelILi1ELi0ELb0EEEvNS_4GemmE"
+            f"14CUtensorMap_st{probe}": ["D"],
+            f"{sw}22swin_stl_linear_kernelILi1ELi0ELb1EEEvNS_4GemmE"
+            f"14CUtensorMap_st{probe}": ["d"],
+            f"{sw}21swinir_conv3x3_kernelILi64ELi0ELi3ELb1EEEvNS_4GemmE"
+            f"14CUtensorMap_st{probe}": ["h"]}
+    assert conv_sass(code) == {
+        "vdsr_conv3x3_kernel": ["A"], "vdsr_conv3x3_kernel probed": ["a"],
+        "rcan_conv3x3_kernel<0, 1>": ["B"],
+        "rcan_conv3x3_kernel<0, 1> probed": ["b"],
+        "swin_stl_linear_kernel<1, 0>": ["D"],
+        "swin_stl_linear_kernel<1, 0> probed": ["d"],
+        "swinir_conv3x3_kernel<64, 0, 3> probed": ["h"]}
+
+
+def test_the_probe_kinds_mirror_the_header():
+    # PROBE_KINDS and PROBE_FIELDS are csrc/probe.cuh's ProbeKind and
+    # Probe, in order; every GEMM instance of SwinIR and RCAN has a kind
+    from srcnn_cpp_tpu_torch.ops import cuda_rcan
+    from srcnn_cpp_tpu_torch.ops.cuda_swinir import (PROBE_FIELDS,
+                                                     PROBE_KINDS,
+                                                     probed_kinds)
+
+    src = (REPO / "srcnn_cpp_tpu_torch/csrc/probe.cuh").read_text()
+    code = re.sub(r"//[^\n]*", "", src)
+    enum = re.search(r"enum ProbeKind : int \{(.*?)\};", code, re.S).group(1)
+    names = [n.strip() for n in enum.split(",")]
+    assert names[-1] == "PROBE_KINDS"
+    want = ["PROBE_" + k.upper() if b == "swinir_gemm" or k == "vdsr" else
+            "PROBE_RCAN_" + k.upper() for b, k in PROBE_KINDS]
+    assert names[:-1] == want
+    struct = re.search(r"struct Probe \{(.*?)\};", code, re.S).group(1)
+    assert re.findall(r"unsigned long long (\w+);", struct) == \
+        list(PROBE_FIELDS)
+    kinds = set(probed_kinds(6, 6)) | set(cuda_rcan.probed_kinds(10, 20))
+    assert kinds | {("conv3x3", "vdsr")} == set(PROBE_KINDS)
+
+
+def test_a_1080p_frame_counts_the_schedules_units_and_stages():
+    # a unit is 128 pixels by an output tile; a stage one tap and 16
+    # input channels (12 a token map, 23 the MLP's, 9 x 12 a conv)
+    from srcnn_cpp_tpu_torch.ops.cuda_swinir import (probe_counts,
+                                                     probe_units,
+                                                     probed_kinds)
+
+    assert {k: probe_units("swinir_gemm", k, 1080, 1920) for k in
+            ("qkv", "proj", "fc1", "fc2", "conv", "before_up")} == {
+        "qkv": (48_600, 583_200), "proj": (16_200, 194_400),
+        "fc1": (32_400, 388_800), "fc2": (16_200, 372_600),
+        "conv": (16_200, 16_200 * 108), "before_up": (16_200, 16_200 * 108)}
+    got = probe_counts(probed_kinds(6, 6), 2, 1080, 1920)
+    assert got["swinir_gemm", "qkv"] == (72, 72 * 48_600, 72 * 583_200)
+    assert got["swinir_gemm", "conv"] == (14, 14 * 16_200, 14 * 1_749_600)
+    assert got["swinir_gemm", "before_up"] == (2, 32_400, 3_499_200)
+    # the upsampler on the 64->64 body: units of 2 rows by 128 columns
+    assert got["conv3x3", "shuffle"] == (8, 8 * 540 * 15, 8 * 8 * 540 * 15)
+    assert sum(n for n, _, _ in got.values()) == 2 * (152 + 4)
+
+
+def test_probe_tally_reads_the_counts_and_refuses_impossible_cycles():
+    from srcnn_cpp_tpu_torch.ops.cuda_swinir import PROBE_FIELDS, probe_tally
+
+    c = dict(zip(PROBE_FIELDS, (2, 10, 1000, 400, 100, 80, 900, 300)))
+    assert probe_tally({"conv3x3": {"pool": c}}) == {
+        ("conv3x3", "pool"): (2, 10, 80)}
+    for field, v in (("full_wait_cycles", 901), ("epilogue_cycles", 601),
+                     ("empty_wait_cycles", 1001), ("fill_cycles", 0)):
+        with pytest.raises(ValueError):
+            probe_tally({"conv3x3": {"pool": {**c, field: v}}})
 
 
 def test_one_cache_rule_for_the_packed_weights():
@@ -1006,6 +1082,94 @@ def test_cuda_swinir_fused_keeps_its_1080p_digest(swinir):
         .contiguous().cuda()
     got = swinir_fused(x, w, (2160, 3840)).cpu().numpy()
     assert hashlib.sha256(got.tobytes()).hexdigest() == FRAME_DIGEST
+
+
+def _card_tokens(h, w, seed, cin=184, real=180):
+    g = torch.Generator("cuda").manual_seed(seed)
+    x = torch.zeros((h, w, cin), device="cuda")
+    x[..., :real] = torch.randn((h, w, real), generator=g, device="cuda")
+    return x
+
+
+#: each GEMM of the body: gemm_variant's kind, its probe kind, the layer's
+#: weight shape, and whether it takes a skip and a LayerNorm
+PROBED_GEMMS = {"qkv": ("qkv", "qkv", (540, 180), False, True),
+                "proj": ("resid", "proj", (180, 180), True, False),
+                "fc1": ("fc1", "fc1", (360, 180), False, True),
+                "fc2": ("resid", "fc2", (180, 360), True, False),
+                "conv": ("conv", "conv", (180, 180, 3, 3), True, False),
+                "conv_ln": ("conv_ln", "conv", (180, 180, 3, 3), True, True),
+                "before_up": ("before_up", "before_up", (64, 180, 3, 3),
+                              False, False)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw", [(37, 45), (1080, 1920)])
+@pytest.mark.parametrize("layer", sorted(PROBED_GEMMS))
+def test_cuda_a_probed_gemm_is_bit_equal_and_counted(layer, hw):
+    # traced, the launcher runs the probed instance: the untraced output
+    # and statistics, and the units and stages of the schedule's
+    # arithmetic, the same again on a second launch
+    from srcnn_cpp_tpu_torch.ops.cuda_swinir import (gemm_call, gemm_variant,
+                                                     probe_tally, probe_units)
+    from srcnn_cpp_tpu_torch.utils.profiling import counted
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    h, w = hw
+    kind, probe, shape, skip, ln = PROBED_GEMMS[layer]
+    g = torch.Generator().manual_seed(51)
+    wt = torch.randn(shape, generator=g) * 0.02
+    b = torch.randn(shape[0], generator=g) * 0.1
+    args = (kind, _card_tokens(h, w, 50, *((368, 360) if layer == "fc2"
+                                           else ())), wt, b)
+    kw = {"skip": _card_tokens(h, w, 52) if skip else None,
+          "ln": _ln(53) if ln else None}
+    off = gemm_variant(*args, **kw)
+    launch, on = gemm_call(*args, **kw)
+    found = [probe_tally(counted(launch)[1])]
+    for k, v in off.items():
+        assert v is None and on[k] is None or torch.equal(on[k], v), k
+    found.append(probe_tally(counted(launch)[1]))
+    want = {("swinir_gemm", probe): (1, *probe_units("swinir_gemm", probe,
+                                                     h, w))}
+    assert found == [want, want]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw", [(64, 96), (1080, 1920)])
+def test_cuda_swinir_fused_probed_is_bit_equal_and_counted(swinir, hw,
+                                                           tmp_path):
+    # under a trace both GEMM bodies run probed: the frame is the untraced
+    # one (at 1080p the parent's digest), counted as its launch schedule
+    # says, the same on a second call
+    import hashlib
+
+    from portbench.frames import make
+    from srcnn_cpp_tpu_torch.ops.cuda_swinir import (probe_counts,
+                                                     probe_tally,
+                                                     probed_kinds,
+                                                     swinir_fused)
+    from srcnn_cpp_tpu_torch.utils.profiling import (counted,
+                                                     kernel_counters, trace)
+
+    w = _card(swinir)
+    h, wd = hw
+    x = make(FRAME_SEED, 1, hw, "cpu").permute(0, 3, 1, 2).contiguous() \
+        .cuda()
+    off = swinir_fused(x, w, (2 * h, 2 * wd))
+    kernel_counters(reset=True)
+    with trace(str(tmp_path)):
+        traced = swinir_fused(x, w, (2 * h, 2 * wd))
+    found = [probe_tally(kernel_counters(reset=True))]
+    again, more = counted(lambda: swinir_fused(x, w, (2 * h, 2 * wd)))
+    found.append(probe_tally(more))
+    assert torch.equal(traced, off) and torch.equal(again, off)
+    if hw == (1080, 1920):
+        assert hashlib.sha256(traced.cpu().numpy().tobytes()).hexdigest() \
+            == FRAME_DIGEST
+    want = probe_counts(probed_kinds(w.groups, w.depth), 1, h, wd)
+    assert found == [want, want]
 
 
 def _card_frames(h, w, seed):

@@ -313,3 +313,208 @@ def test_every_span_is_in_perf_md_and_nothing_else():
     table = set(re.findall(r"^\| `(srcnn\.[^`]+)` \|",
                            (REPO / "PERF.md").read_text(), re.M))
     assert in_code and in_code == table, (in_code ^ table)
+
+
+# --- the GEMM bodies' stall counters -------------------------------------------
+
+def test_recording_is_the_one_switch(monkeypatch):
+    # span and the launchers ask utils.profiling.recording(), which reads
+    # torch's flag; a profiler session turns it on
+    from torch.profiler import ProfilerActivity, profile
+
+    from srcnn_cpp_tpu_torch.utils import profiling
+
+    assert profiling.recording() is False
+    with profile(activities=[ProfilerActivity.CPU]):
+        assert profiling.recording() is True
+        assert profiling.span("srcnn.a") is not profiling._NO_SPAN
+    assert profiling.recording() is False
+    monkeypatch.setattr(profiling, "recording", lambda: True)
+    assert profiling.span("srcnn.a") is not profiling._NO_SPAN
+    assert profiling.counter_records(torch.device("cpu")) is not None
+    monkeypatch.setattr(profiling, "recording", lambda: False)
+    assert profiling.span("srcnn.a") is profiling._NO_SPAN
+    assert profiling.counter_records(torch.device("cpu")) is None
+    profiling._RECORDS.clear()
+
+
+META = torch.device("meta")
+
+
+@pytest.fixture
+def fake_card(monkeypatch):
+    """The launchers' card paths with nothing on a card: tensors on the
+    meta device, the C library a recorder of its calls, the packed weights
+    stand-ins; the counter records a CPU tensor.  Yields ``(calls,
+    records)``."""
+    import contextlib
+
+    from srcnn_cpp_tpu_torch import runtime
+    from srcnn_cpp_tpu_torch.ops import (cuda_rcan, cuda_srcnn, cuda_swinir,
+                                         cuda_vdsr)
+    from srcnn_cpp_tpu_torch.ops.cuda_swinir import PROBE_FIELDS, PROBE_KINDS
+    from srcnn_cpp_tpu_torch.utils import profiling
+
+    calls = []
+
+    class Library:
+        def __getattr__(self, name):
+            return lambda *args: calls.append((name, args)) or 0
+
+    monkeypatch.setattr(runtime, "library", Library)
+    monkeypatch.setattr(runtime, "current_stream", lambda: 7)
+    monkeypatch.setattr(runtime, "num_sms", lambda: 132)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda device: contextlib.nullcontext())
+    for module in (cuda_srcnn, cuda_rcan, cuda_swinir):
+        monkeypatch.setattr(module, "_on_device", lambda x, device: None)
+    empty = lambda n: lambda w: (torch.empty(4, device=META),) * n  # noqa
+    monkeypatch.setattr(cuda_vdsr, "pack_vdsr", empty(3))
+    monkeypatch.setattr(cuda_rcan, "pack_rcan", empty(4))
+    monkeypatch.setattr(cuda_swinir, "pack_swinir", empty(5))
+    records = torch.zeros((len(PROBE_KINDS), len(PROBE_FIELDS)),
+                          dtype=torch.int64)
+    monkeypatch.setattr(profiling, "_RECORDS", {META: records})
+    yield calls, records
+
+
+def _launch(name):
+    from srcnn_cpp_tpu_torch.ops import cuda_rcan, cuda_swinir, cuda_vdsr
+    from srcnn_cpp_tpu_torch.weights import load_vdsr_weights
+    from srcnn_cpp_tpu_torch.weights.rcan import RCANWeights, rcan_shapes
+    from srcnn_cpp_tpu_torch.weights.swinir import swinir_shapes
+
+    def on_meta(shapes):
+        return {k: torch.empty(s, device=META) for k, s in shapes.items()}
+
+    bgr = torch.empty((1, 3, 8, 16), dtype=torch.uint8, device=META)
+    if name == "vdsr_y_fused":
+        w = load_vdsr_weights(REPO / "portbench/configs/vdsr20_seeded.npz")
+        cuda_vdsr.vdsr_y_fused(
+            torch.empty((2, 8, 16), dtype=torch.uint8, device=META),
+            w.to(META))
+    elif name == "rcan_fused":
+        cuda_rcan.rcan_fused(bgr, RCANWeights(on_meta(rcan_shapes(1, 1))),
+                             (16, 32))
+    elif name == "swinir_fused":
+        from srcnn_cpp_tpu_torch.weights import SwinIRWeights
+
+        cuda_swinir.swinir_fused(
+            bgr, SwinIRWeights(on_meta(swinir_shapes(groups=1, depth=1))),
+            (16, 32))
+    elif name == "gemm_variant":
+        cuda_swinir.gemm_variant(
+            "qkv", torch.empty((8, 16, 184), device=META),
+            torch.zeros(540, 180), torch.zeros(540),
+            ln=(torch.ones(180), torch.zeros(180)))
+    else:
+        cuda_rcan.conv3x3_variant(torch.empty((8, 16, 64), device=META),
+                                  torch.zeros(64, 64, 3, 3), torch.zeros(64),
+                                  "relu")
+
+
+LAUNCHERS = {"vdsr_y_fused": "vdsr_y_u8", "rcan_fused": "rcan_x2_u8",
+             "swinir_fused": "swinir_x2_u8",
+             "gemm_variant": "swinir_gemm_f32",
+             "conv3x3_variant": "rcan_conv3x3_f32"}
+
+
+@pytest.mark.parametrize("launcher", sorted(LAUNCHERS))
+def test_a_launcher_passes_the_counter_records_only_while_traced(
+        launcher, fake_card):
+    # the C entry point's last argument: null untraced, so the unprobed
+    # kernels run; the card's records while a profiler records
+    from torch.profiler import ProfilerActivity, profile
+
+    calls, records = fake_card
+    _launch(launcher)
+    with profile(activities=[ProfilerActivity.CPU]):
+        _launch(launcher)
+    assert [name for name, _ in calls] == [LAUNCHERS[launcher]] * 2
+    (_, off), (_, on) = calls
+    assert off[-2:] == (7, None)
+    assert on[-2:] == (7, records.data_ptr()) and records.data_ptr()
+    assert off[:-1] == on[:-1]
+
+
+def test_kernel_counters_is_empty_on_the_cpu(tmp_path):
+    from srcnn_cpp_tpu_torch.pipeline import upscale_bgr_batch
+    from srcnn_cpp_tpu_torch.utils.profiling import kernel_counters
+
+    _traced(lambda: upscale_bgr_batch(_frames(), 2.0, device="cpu"),
+            tmp_path)
+    assert kernel_counters() == {}
+
+
+def test_kernel_counters_reads_sums_and_resets(monkeypatch):
+    # two cards' records: a kind only where it ran, summed over the cards
+    from srcnn_cpp_tpu_torch.ops.cuda_swinir import PROBE_FIELDS, PROBE_KINDS
+    from srcnn_cpp_tpu_torch.utils import profiling
+
+    rows = torch.zeros((len(PROBE_KINDS), len(PROBE_FIELDS)),
+                       dtype=torch.int64)
+    qkv = PROBE_KINDS.index(("swinir_gemm", "qkv"))
+    pool = PROBE_KINDS.index(("conv3x3", "pool"))
+    rows[qkv] = torch.arange(1, 9)
+    rows[pool] = torch.arange(2, 10)
+    other = rows.clone()
+    other[pool] = 0           # a card on which the pool conv never ran
+    monkeypatch.setattr(profiling, "_RECORDS", {torch.device("cpu"): rows,
+                                                torch.device("cpu", 0):
+                                                other})
+    got = profiling.kernel_counters()
+    assert got == {"swinir_gemm": {"qkv": dict(zip(PROBE_FIELDS,
+                                                   range(2, 17, 2)))},
+                   "conv3x3": {"pool": dict(zip(PROBE_FIELDS,
+                                                range(2, 10)))}}
+    assert profiling.kernel_counters(reset=True) == got
+    assert not rows.any() and not other.any()
+    assert profiling.kernel_counters() == {}
+
+
+#: the counter readers of portbench/metrics: (body, numerator,
+#: denominator, scale) and the cells that report them
+COUNTER_READERS = {
+    "swinir_gemm_full_wait_pct": ("swinir_gemm", "full_wait_cycles",
+                                  "unit_cycles", 100.0),
+    "swinir_gemm_epilogue_pct": ("swinir_gemm", "epilogue_cycles",
+                                 "unit_cycles", 100.0),
+    "swinir_gemm_fill_cycles": ("swinir_gemm", "fill_cycles", "stages", 1.0),
+    "conv3x3_full_wait_pct": ("conv3x3", "full_wait_cycles", "unit_cycles",
+                              100.0),
+    "conv3x3_epilogue_pct": ("conv3x3", "epilogue_cycles", "unit_cycles",
+                             100.0),
+    "conv3x3_fill_cycles": ("conv3x3", "fill_cycles", "stages", 1.0)}
+
+
+@pytest.mark.parametrize("name", sorted(COUNTER_READERS))
+def test_a_counter_reader_gives_its_quotient(name, monkeypatch):
+    from portbench import spec
+    from srcnn_cpp_tpu_torch.ops.cuda_swinir import PROBE_FIELDS
+    from srcnn_cpp_tpu_torch.utils import profiling
+
+    body, num, den, scale = COUNTER_READERS[name]
+    a = {f: 3 * i + 1 for i, f in enumerate(PROBE_FIELDS)}
+    b = {f: 7 * i + 5 for i, f in enumerate(PROBE_FIELDS)}
+    other = "conv3x3" if body == "swinir_gemm" else "swinir_gemm"
+    found = {body: {"a": a, "b": b}, other: {"c": dict.fromkeys(
+        PROBE_FIELDS, 10 ** 6)}}
+    monkeypatch.setattr(profiling, "kernel_counters",
+                        lambda reset=False: found)
+    read = spec.metric_reader(name)
+    assert read(None) == pytest.approx(scale * (a[num] + b[num])
+                                       / (a[den] + b[den]))
+    found.pop(body)
+    assert read(None) is None
+    monkeypatch.setattr(profiling, "kernel_counters",
+                        lambda reset=False: {})
+    assert read(None) is None
+    # a program without the counters (the parent of this reader)
+    monkeypatch.delattr(profiling, "kernel_counters")
+    assert read(None) is None
+    entry = {m["name"]: m for m in spec.load_benchmark()["per_layer"]}[name]
+    assert (entry["source"], entry["layer"], entry["moves"]) == (
+        "program_counter", "kernels", "out_mpps")
+    assert entry["workloads"] == (["swinir1080p.tensor"]
+                                  if body == "swinir_gemm" else
+                                  ["vdsr1080p.tensor", "rcan1080p.tensor"])

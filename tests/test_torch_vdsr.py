@@ -526,3 +526,31 @@ def test_cuda_upscale_bgr_batch_runs_the_chain(vdsr):
     # as above, through the colour: an H100 gives max 1 on 1.22e-3 of bytes
     print(f"BGR: max {mx} LSB on {frac:.3e} of bytes")
     assert mx <= 2 and frac < 5e-3, (mx, frac)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 37, 300), (1, 1080, 1920)])
+def test_cuda_vdsr_y_fused_probed_is_bit_equal_and_counted(vdsr, shape,
+                                                           tmp_path):
+    # under a trace the 64->64 layers run probed: the untraced planes, 18
+    # launches a plane of the units and stages of vdsr_plan, the same on a
+    # second call
+    from srcnn_cpp_tpu_torch.ops.cuda_swinir import probe_counts, probe_tally
+    from srcnn_cpp_tpu_torch.ops.cuda_vdsr import vdsr_y_fused
+    from srcnn_cpp_tpu_torch.utils.profiling import (counted,
+                                                     kernel_counters, trace)
+
+    w = _card(vdsr)
+    b, h, wd = shape
+    y = torch.from_numpy(np.ascontiguousarray(
+        _smooth(b, h, wd, 5)[..., 0])).cuda()
+    off = vdsr_y_fused(y, w)
+    kernel_counters(reset=True)
+    with trace(str(tmp_path)):
+        traced = vdsr_y_fused(y, w)
+    found = [probe_tally(kernel_counters(reset=True))]
+    again, more = counted(lambda: vdsr_y_fused(y, w))
+    found.append(probe_tally(more))
+    assert torch.equal(traced, off) and torch.equal(again, off)
+    want = probe_counts({("conv3x3", "vdsr"): len(w.layers) - 2}, b, h, wd)
+    assert found == [want, want]
